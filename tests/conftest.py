@@ -25,3 +25,10 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.default_rng(42)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a CUDA kernel on the card; skips on hosts without CUDA",
+    )
