@@ -24,13 +24,6 @@ from ..ops.seeds import local_extrema_mask, paint_seeds
 _BACKENDS = {"auto": "packed", "relax": "relax"}
 
 
-def _label_bucket(n_seeds: int) -> int:
-    """Static label-table size: next power of two >= n_seeds + 1 (one table
-    shape per bucket instead of one per image)."""
-    n = max(2, n_seeds + 1)
-    return 1 << (n - 1).bit_length()
-
-
 def _not_yet(what: str, item: int):
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet "
@@ -102,7 +95,6 @@ class _WatershedBase(WatershedUtils):
         """
         img, labels0 = self._prepare(input_img, seeds)
         kw = dict(
-            n_labels=_label_bucket(len(seeds)),
             max_water_level=self.max_water_level,
             merging=self._merging,
             device=img.device,

@@ -27,7 +27,6 @@ def run_levels_impl(
     img,
     labels0,
     *,
-    n_labels: int,
     max_water_level: int,
     merging: bool = False,
     collect: str = "none",
@@ -40,17 +39,15 @@ def run_levels_impl(
     tensor, or ``(labels, starved)`` with ``with_flags=True``.
 
     ``labels0=None`` (packed only) takes the seeds from the image through the
-    pack kernel.  ``n_labels`` is the static label bound of the JAX driver;
-    the segmenting path reads no per-label table, so it only has to cover
-    the seeds.  ``starved`` is True iff the packed engine's d field saturated
+    pack kernel.  The JAX driver's ``n_labels`` label-table bound has no
+    counterpart here: the segmenting path reads no per-label table.
+    ``starved`` is True iff the packed engine's d field saturated
     (the caller should re-run on ``'relax'``); always False for ``'relax'``.
     """
     if merging:
         raise NotImplementedError(_NEXT_MERGING)
     if collect != "none":
         raise NotImplementedError(_NEXT_COLLECT)
-    if n_labels < 1:
-        raise ValueError("n_labels must be >= 1")
     dev = _ext.resolve_device(device)
     if backend == "packed":
         labels, _, starved = relax_transform_packed(

@@ -26,19 +26,15 @@ def watershed_e2e(
     max_water_level: int = 254,
     merging: bool = False,
     collect: str = "none",
-    n_labels: int | None = None,
     steps: int | None = None,
     with_flags: bool = False,
     device="cuda",
 ):
     """Seeds from the image, then the full transform on the packed engine.
     Returns what run_levels_impl returns."""
-    if n_labels is None:
-        n_labels = max_seed_count(tuple(img.shape[-2:]))
     return run_levels_impl(
         img,
         None,
-        n_labels=n_labels,
         max_water_level=max_water_level,
         merging=merging,
         collect=collect,

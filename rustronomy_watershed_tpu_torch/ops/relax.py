@@ -20,7 +20,7 @@ Layers: ``relax_block`` (one call = exactly ``steps`` global Jacobi sweeps,
 csrc/relax.cu on CUDA tensors, ``relax_block_plain`` on CPU tensors) ->
 ``relax_fixed_point`` (host loop until a call's last sweep changed nothing)
 -> ``relax_packed_planes`` / ``relax_transform_packed`` (pack + fixed point
-+ claim-level mask).
++ the ``max_water_level`` mask).
 
 A call's flags are one int32 tensor ``[changed_any, changed_last, sat]``:
 any centre cell changed in any sweep / in the last sweep (the fixed-point
@@ -178,19 +178,21 @@ def relax_transform_packed(
     ``pallas_relax.relax_transform_pallas``.  Bit-identical labels to
     ops/priority.relax_transform unless ``starved``.
 
-    Returns ``(labels, claim_levels, starved)``; claim_levels is
-    ``NEVER_FILL + 1`` where never claimed.  ``labels0=None`` takes the seeds
-    from the image through the pack kernel.
+    Returns ``(labels, key, starved)``; ``key`` is the packed claim key plane
+    (claim level ``key >> d_bits``; ``NEVER_FILL << d_bits`` where never
+    claimed).
+    ``labels0=None`` takes the seeds from the image through the pack kernel.
     """
-    d_bits, _, unclaimed = _key_consts(None)
+    d_bits, _, _ = _key_consts(None)
     key, lab, starved = relax_packed_planes(
         img, labels0, steps=steps, d_bits=d_bits, device=device
     )
-    claim_levels = torch.where(key == unclaimed, NEVER_FILL + 1, key >> d_bits)
     if max_water_level >= 254:
         # The claimed-ness gate keeps unclaimed cells at label 0, so the
         # label plane already is the final label image.
         labels = lab
     else:
-        labels = torch.where(claim_levels <= max_water_level, lab, UNCOLOURED)
-    return labels, claim_levels.to(torch.int32), starved
+        # claim level <= max_water_level  <=>  key < (max_water_level + 1) << d_bits;
+        # unclaimed keys (NEVER_FILL << d_bits) lie above every such bound.
+        labels = torch.where(key < (max_water_level + 1) << d_bits, lab, UNCOLOURED)
+    return labels, key, starved

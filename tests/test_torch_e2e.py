@@ -132,8 +132,8 @@ def test_unserved_entries_raise():
         (lambda: ws.transform_history(img, []), 8),
         (lambda: ws.transform_batch(img[None], [[]]), 7),
         (lambda: ws.transform_with_hook(img, []), 11),
-        (lambda: run_levels_impl(img, None, n_labels=2, max_water_level=254, merging=True, device="cpu"), 6),
-        (lambda: run_levels_impl(img, None, n_labels=2, max_water_level=254, collect="sizes", device="cpu"), 8),
+        (lambda: run_levels_impl(img, None, max_water_level=254, merging=True, device="cpu"), 6),
+        (lambda: run_levels_impl(img, None, max_water_level=254, collect="sizes", device="cpu"), 8),
     ):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             call()

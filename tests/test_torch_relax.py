@@ -13,7 +13,7 @@ from rustronomy_watershed_tpu.ops import pallas_relax as jrelax
 from rustronomy_watershed_tpu.ops import priority as jprio
 from rustronomy_watershed_tpu.ops.seeds import local_extrema_mask as j_mask
 from rustronomy_watershed_tpu_torch import _ext
-from rustronomy_watershed_tpu_torch.constants import _D_BITS, _D_MASK, _UNCLAIMED
+from rustronomy_watershed_tpu_torch.constants import _D_BITS, _D_MASK, _UNCLAIMED, NEVER_FILL
 from rustronomy_watershed_tpu_torch.convert import planes_from_jax, planes_to_jax_layout
 from rustronomy_watershed_tpu_torch.ops import priority, relax
 from rustronomy_watershed_tpu_torch.ops.pack import pack_domain, pack_plain
@@ -73,9 +73,10 @@ def test_packed_transform_matches_jax_pallas_and_exact(shape, hi, maxlvl):
     j_lab, j_L, j_starved = jrelax.relax_transform_pallas(
         jnp.asarray(img), jnp.asarray(lab0), max_water_level=maxlvl, tile=8, steps=8, interpret=True
     )
-    labels, claim, starved = relax.relax_transform_packed(
+    labels, key, starved = relax.relax_transform_packed(
         img, lab0, max_water_level=maxlvl, steps=8, device="cpu"
     )
+    claim = torch.where(key == _UNCLAIMED, NEVER_FILL + 1, key >> _D_BITS)
     np.testing.assert_array_equal(labels.numpy(), np.asarray(j_lab))
     np.testing.assert_array_equal(claim.numpy(), np.asarray(j_L))
     assert starved is False and bool(j_starved) is False
