@@ -5,13 +5,14 @@ one NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from csrc/, holds each against its plain
-PyTorch twin on the card, drives the segmenting main path through both entry
-points a user calls (the public builder API on the committed goldens, and
-``watershed_e2e`` on the 4096^2 u8 field), checks the labels, and times the
-card.  One line per phase; the line before the last is the kernel table as
-JSON, the last line ``{"ok": true, "device": {...}}``.  Any failed check
-raises and the run exits non-zero; without CUDA it exits non-zero at once.
-Imports nothing of JAX.
+PyTorch twin on the card, drives both main paths through the entry points a
+user calls (the public builder API on the committed goldens, ``watershed_e2e``
+on the 4096^2 u8 fields, ``transform_batch`` on 16 x 1024^2 cutouts) for the
+segmenting and the merging variant, checks the labels, and times the card.
+One line per phase; the line before the last is the kernel table as JSON,
+the last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
+the run exits non-zero; without CUDA it exits non-zero at once.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -27,7 +28,13 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden")
-SIDE = 4096  # the benchmarked field: bench.py's uniform u8 input
+SIDE = 4096  # the benchmarked fields: bench.py's u8 inputs (dense, 10% NaN dots)
+
+# The least time the card could take (on-chip-measurement guide, H100 SXM at
+# 700 W): bytes over 3.35 TB/s, operations over 67 T/s (the guide's rate
+# outside the tensor cores, the only one it gives for 32-bit work).
+HBM_BYTES_PER_MS = 3.35e9
+OPS_PER_MS = 67e9
 
 
 def check(ok, what: str) -> None:
@@ -43,6 +50,12 @@ def gpu_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def bound(nbytes: float, ops: float):
+    """``(bound_ms, bound_by)``: the larger of the byte and operation times."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, ops / OPS_PER_MS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def main() -> int:
     import torch
 
@@ -52,6 +65,7 @@ def main() -> int:
 
     from rustronomy_watershed_tpu_torch import _ext
     from rustronomy_watershed_tpu_torch.ops import pack, priority, relax
+    from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
     from rustronomy_watershed_tpu_torch.ops.pipeline import watershed_e2e
     from rustronomy_watershed_tpu_torch.ops.seeds import paint_seeds
     from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
@@ -64,7 +78,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _ext.lib()
-    print(f"[2 build] nvcc + load {time.perf_counter() - t0:.2f} s -> {_ext.library_path()}")
+    print(f"[2 build] nvcc (one process per source) + link + load {time.perf_counter() - t0:.2f} s -> {_ext.library_path()}")
 
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -92,8 +106,9 @@ def main() -> int:
         pack_err = max(pack_err, err)
         print(f"[3 pack] {label}: bit-equal to twin, {int(got[3])} seeds")
 
-    # -- 4: relax kernel against its twin ------------------------------------
+    # -- 4: relax kernel against its twin, statistics included ----------------
     img = to_dev(np.random.default_rng(0).integers(0, 254, (SIDE, SIDE)).astype(np.uint8))
+    dots_dev = to_dev(dots)
     v, key0, lab0, _ = pack.pack_kernel(img)
     mid_k, mid_l, _ = relax.relax_block_kernel(v, key0, lab0, 8)
     relax_err = 0
@@ -106,6 +121,29 @@ def main() -> int:
             check(err == 0, f"relax kernel == {steps} plain sweeps from {start} state")
             relax_err = max(relax_err, err)
             print(f"[4 relax] steps={steps} {start}: planes and flags {got[2].tolist()} bit-equal to twin")
+
+    # The merging epilogue: statistics of the dense and the 10%-dot fields
+    # (fresh, mid and at the fixed point) and of a border-seed state.
+    vd, kd, ld, _ = pack.pack_kernel(dots_dev)
+    fixed = relax.relax_fixed_point(v, key0.clone(), lab0.clone())
+    fixed_d = relax.relax_fixed_point(vd, kd.clone(), ld.clone())
+    kb, lb = key0.clone(), lab0.clone()
+    kb[0, 100], lb[0, 100] = 0, 10**7  # a border seed
+    stat_cases = {
+        "dense fresh": (v, key0, lab0), "dense mid": (v, mid_k, mid_l),
+        "dense fixed point": (v, fixed[0], fixed[1]), "dots fresh": (vd, kd, ld),
+        "dots fixed point": (vd, fixed_d[0], fixed_d[1]), "border seed": (v, kb, lb),
+    }
+    for label, (vv, kk, ll) in stat_cases.items():
+        got = relax.relax_block_kernel(vv, kk, ll, relax.DEFAULT_STEPS, stats=True)
+        want = relax.relax_block_plain(vv, kk, ll, relax.DEFAULT_STEPS, stats=True)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(err == 0, f"relax kernel with statistics == twin on {label}")
+        relax_err = max(relax_err, err)
+        print(f"[4 relax] stats {label}: flags + statistics {got[2].tolist()} bit-equal to twin")
+    check(relax.relax_block_kernel(*stat_cases["border seed"], 8, stats=True)[2][relax.ANY_BORDER].item() == 1,
+          "border seed seen by the statistics")
 
     # d field pinned at its maximum: the saturated key spreads without
     # carrying into the level field, and the detector fires.
@@ -185,6 +223,7 @@ def main() -> int:
     check(torch.equal(e2e, want), "e2e labels == exact engine")
     check(int(e2e.max()) == len(seeds) and int(e2e[0].abs().max()) == 0, "e2e labels in range, border uncoloured")
     print(f"[6 e2e] {SIDE}^2 watershed_e2e equals the exact engine ({len(seeds)} seeds); launches {launches}")
+    seg_exact = want
 
     # -- 7: times on the card --------------------------------------------------
     def median_ms(fn, reps: int) -> float:
@@ -213,15 +252,167 @@ def main() -> int:
     relax_ms = median_ms(lambda: relax.relax_block_kernel(v, key0, lab0, s), 20)
     relax_plain_ms = median_ms(lambda: relax.relax_block_plain(v, key0, lab0, s), 5)
     print(f"[7 time] relax {SIDE}^2 one call of {s} sweeps: kernel {relax_ms:.3f} ms, plain {relax_plain_ms:.3f} ms; gpu={gpu}")
+    relax_stats_ms = median_ms(lambda: relax.relax_block_kernel(v, key0, lab0, s, stats=True), 20)
+    print(f"[7 time] relax {SIDE}^2 one call of {s} sweeps with statistics: kernel {relax_stats_ms:.3f} ms; gpu={gpu}")
 
-    kernels = [
-        dict(name="pack", route="cuda", source="rustronomy_watershed_tpu_torch/csrc/pack.cu",
-             replaces="rustronomy_watershed_tpu/ops/pallas_pack.py:85", launches=launches["pack"],
-             max_abs_err=pack_err, ms=pack_ms, plain_ms=pack_plain_ms),
-        dict(name="relax", route="cuda", source="rustronomy_watershed_tpu_torch/csrc/relax.cu",
-             replaces="rustronomy_watershed_tpu/ops/pallas_relax.py:254", launches=launches["relax"],
-             max_abs_err=relax_err, ms=relax_ms, plain_ms=relax_plain_ms),
+    # -- 8: the coarse kernels against their twins -----------------------------
+    rng8 = np.random.default_rng(8)
+    blobs = rng8.integers(0, 254, (1024, 1024)).astype(np.uint8)
+    for cy, cx, r in zip(*(rng8.integers(0, 1024, 60), rng8.integers(0, 1024, 60), rng8.integers(4, 40, 60))):
+        blobs[max(0, cy - r) : cy + r, max(0, cx - r) : cx + r] = 255
+    uni = rng8.integers(0, 254, (1024, 1024)).astype(np.uint8)
+    odd = rng8.integers(0, 254, (1023, 1031)).astype(np.uint8)
+    odd[rng8.random(odd.shape) < 0.1] = 255
+    narrow = rng8.integers(0, 254, (1001, 3)).astype(np.uint8)
+
+    def fixed_labels(a, seeds=None):
+        lab0_ = None if seeds is None else to_dev(paint_seeds(a.shape, seeds))
+        return relax.relax_packed_planes(to_dev(a), lab0_, device=dev)[1]
+
+    border = [(0, 5), (0, 6), (1023, 500), (300, 0), (301, 1023)] + [tuple(p) for p in rng8.integers(1, 1023, (40, 2))]
+    narrow_seeds = [(0, 1), (5, 1), (400, 1), (401, 0), (700, 2), (1000, 1)]
+    coarse_fields = {
+        "10% 255-dots 4096^2": fixed_labels(dots),
+        "NaN blobs 1024^2": fixed_labels(blobs),
+        "border seeds 1024^2": fixed_labels(uni, border),
+        "odd 1023x1031 10% dots": fixed_labels(odd),
+        "w=3 1001x3": fixed_labels(narrow, narrow_seeds),
+    }
+    coarse_err = {"coarsen": 0, "coarse_round": 0, "coarse_broadcast": 0}
+    for label, lab in coarse_fields.items():
+        c = sm.coarsen_kernel(lab)
+        err = max_err([c], [sm.coarsen_plain(lab)])
+        check(err == 0, f"coarsen kernel == twin on {label}")
+        coarse_err["coarsen"] = max(coarse_err["coarsen"], err)
+        scratch, rounds = torch.empty_like(c), 0
+        while True:
+            got = sm.coarse_round_kernel(c, scratch=scratch)
+            want = sm.coarse_round_plain(c)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            check(err == 0, f"coarse round {rounds} kernel == twin on {label}")
+            coarse_err["coarse_round"] = max(coarse_err["coarse_round"], err)
+            c, rounds = got[0], rounds + 1
+            if got[1].item() == 0:
+                break
+            check(rounds < 10000, f"coarse rounds converge on {label}")
+        fine = sm.coarse_broadcast_kernel(c, lab)
+        err = max_err([fine], [sm.coarse_broadcast_plain(c, lab)])
+        check(err == 0, f"coarse broadcast kernel == twin on {label}")
+        coarse_err["coarse_broadcast"] = max(coarse_err["coarse_broadcast"], err)
+        check(torch.equal(fine, sm.component_min_labels_plain(lab)), f"coarse tail == oracle on {label}")
+        print(f"[8 coarse] {label}: coarsen, {rounds} rounds and broadcast bit-equal to their twins; tail == oracle")
+
+    # -- 9: the merging public API on the goldens ------------------------------
+    _ext.reset_launches()
+    wm = TransformBuilder.default().set_device("cuda").build_merging()
+    z = np.load(os.path.join(GOLDEN, "golden_morph_v1.npz"))
+    mcases = [("golden_morph_v1 1024^2", wm, z["img"], z["seeds"], z["merging/labels"])]
+    z = np.load(os.path.join(GOLDEN, "golden_v1.npz"))
+    for f in ("uniform", "poisson", "grf", "nanmasked"):
+        mcases.append((f"golden_v1 {f} 64^2", wm, z[f"{f}/img"], z[f"{f}/seeds"], z[f"{f}/merging/labels"]))
+    wm_edge = TransformBuilder.default().set_device("cuda").enable_edge_correction().build_merging()
+    mcases.append(("golden_v1 edge 66^2", wm_edge, z["uniform/img"], z["edge/seeds"], z["edge/merging/labels"]))
+    for label, wsm, gimg, gseeds, glabels in mcases:
+        out = wsm.transform(gimg, [tuple(p) for p in gseeds])
+        check(out.dtype == np.int32 and np.array_equal(out, glabels), f"merging labels of {label}")
+        print(f"[9 api] {label}: merging labels equal the golden")
+    mapi = dict(_ext.launches)
+    check(sum(mapi[f"{k}_plain"] for k in _ext.KERNELS) == 0, "no plain twin on the merging API path")
+    print(f"[9 api] launches {mapi}")
+
+    # -- 10: the merging main path: dense (shortcut) and 10% dots (tail) -------
+    merge_runs = {}
+    for label, field, route, seg in (("dense", img, "merge_shortcut", seg_exact), ("10% dots", dots_dev, "merge_tail", None)):
+        if seg is None:
+            seeds_f = ws.find_local_minima(field)
+            seg, _ = priority.relax_transform(field, to_dev(paint_seeds(tuple(field.shape), seeds_f)))
+        _ext.reset_launches()
+        got = watershed_e2e(field, merging=True, device=dev)
+        torch.cuda.synchronize()
+        counts = dict(_ext.launches)
+        check(counts[route] == 1, f"merging e2e on {label} took the {route} route")
+        check(sum(counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, f"no plain twin on the {label} merging e2e")
+        tail = route == "merge_tail"
+        for k in ("coarsen", "coarse_round", "coarse_broadcast"):
+            check((counts[k] > 0) == tail, f"{k} launched iff the tail ran ({label})")
+        check(counts["pack"] == 1 and counts["relax"] > 0, f"{label} merging e2e launched pack and relax")
+        check(torch.equal(got, sm.component_min_labels_plain(seg)), f"{label} merging e2e == exact engine + oracle")
+        merge_runs[label] = counts
+        print(f"[10 merging] {SIDE}^2 {label} watershed_e2e(merging=True) equals the exact engine + oracle; route {route}; launches {counts}")
+
+    # -- 11: transform_batch, 16 x 1024^2 merging cutouts -----------------------
+    cut = np.random.default_rng(11).integers(0, 254, (16, 1024, 1024)).astype(np.uint8)
+    seeds_b = [wm.find_local_minima(a) for a in cut]
+    for label, extra, route in (("clean", [], "merge_shortcut"), ("border seed", [(0, 7)], "merge_tail")):
+        sl = [s_ + (extra if i == 3 else []) for i, s_ in enumerate(seeds_b)]
+        _ext.reset_launches()
+        out = wm.transform_batch(cut, sl)
+        counts = dict(_ext.launches)
+        check(counts[route] == 1, f"batched merging ({label}) took the {route} route")
+        for i in range(len(cut)):
+            check(np.array_equal(out[i], wm.transform(cut[i], sl[i])), f"batched merging ({label}) image {i} == transform")
+        print(f"[11 batch] 16 x 1024^2 merging transform_batch ({label}) equals per-image transforms; route {route}; launches {counts}")
+    batch_ms = median_ms(lambda: wm.transform_batch(cut, seeds_b, device_output=True), 3)
+    print(f"[11 batch] 16 x 1024^2 merging transform_batch (clean) {batch_ms:.3f} ms wall of the API call; gpu={gpu}")
+
+    # -- 12: merging times -------------------------------------------------------
+    dense_ms = median_ms(lambda: watershed_e2e(img, merging=True, device=dev), 9)
+    dots_ms = median_ms(lambda: watershed_e2e(dots_dev, merging=True, device=dev), 9)
+    dots_relax_ms = median_ms(lambda: relax.relax_packed_planes(dots_dev, None, device=dev, stats=True), 9)
+    lab_d = coarse_fields["10% 255-dots 4096^2"]
+    tail_rounds = sm.component_min_coarse(lab_d, sm._CVAL)[1]
+    tail_ms = median_ms(lambda: sm.component_min_coarse(lab_d, sm._CVAL), 9)
+    print(f"[12 time] {SIDE}^2 merging e2e: dense {dense_ms:.3f} ms ({SIDE * SIDE / dense_ms / 1e3:.1f} Mpix/s, "
+          f"relax calls {merge_runs['dense']['relax']}, shortcut); 10% dots {dots_ms:.3f} ms "
+          f"({SIDE * SIDE / dots_ms / 1e3:.1f} Mpix/s, relax calls {merge_runs['10% dots']['relax']}); gpu={gpu}")
+    print(f"[12 time] 10% dots split: pack + relax with statistics {dots_relax_ms:.3f} ms, coarse tail {tail_ms:.3f} ms "
+          f"in {tail_rounds} rounds; gpu={gpu}")
+    c0 = sm.coarsen_kernel(lab_d)
+    c_fin = sm.coarsen_kernel(lab_d)
+    scratch = torch.empty_like(c_fin)
+    while sm.coarse_round_kernel(c_fin, out=c_fin, scratch=scratch)[1].item():
+        pass
+    coarsen_ms = median_ms(lambda: sm.coarsen_kernel(lab_d), 20)
+    coarsen_plain_ms = median_ms(lambda: sm.coarsen_plain(lab_d), 5)
+    round_ms = median_ms(lambda: sm.coarse_round_kernel(c0, scratch=scratch), 20)
+    round_plain_ms = median_ms(lambda: sm.coarse_round_plain(c0), 5)
+    bcast_ms = median_ms(lambda: sm.coarse_broadcast_kernel(c_fin, lab_d), 20)
+    bcast_plain_ms = median_ms(lambda: sm.coarse_broadcast_plain(c_fin, lab_d), 5)
+    print(f"[12 time] coarsen {SIDE}^2: kernel {coarsen_ms:.3f} ms, plain {coarsen_plain_ms:.3f} ms; "
+          f"first coarse round: kernel {round_ms:.3f} ms, plain {round_plain_ms:.3f} ms; "
+          f"broadcast: kernel {bcast_ms:.3f} ms, plain {bcast_plain_ms:.3f} ms; gpu={gpu}")
+
+    # Bytes each function must move at 4096^2 (each input read once, each
+    # output written once) and the integer operations it does per cell.
+    px, cells = SIDE * SIDE, (SIDE // 2) * SIDE
+    bounds = {
+        "pack": bound(px * (1 + 1 + 4 + 4), px * 20),  # 8 compares + numbering per pixel
+        "relax": bound(px * (1 + 8 + 8), px * s * 25),  # ~25 ops per cell and sweep
+        "coarsen": bound(px * 4 + cells * 4, cells * 40),
+        "coarse_round": bound(2 * cells * 4, 2 * cells * 12),  # plane in, plane out; two passes of scans
+        "coarse_broadcast": bound(px * 4 + cells * 4 + px * 4, px * 6),
+    }
+    dot_counts = merge_runs["10% dots"]
+    rows = [
+        ("pack", "csrc/pack.cu", "rustronomy_watershed_tpu/ops/pallas_pack.py:85", launches["pack"], pack_err, pack_ms, pack_plain_ms),
+        ("relax", "csrc/relax.cu", "rustronomy_watershed_tpu/ops/pallas_relax.py:254", launches["relax"], relax_err, relax_ms, relax_plain_ms),
+        ("coarsen", "csrc/coarsen.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:687", dot_counts["coarsen"],
+         coarse_err["coarsen"], coarsen_ms, coarsen_plain_ms),
+        ("coarse_round", "csrc/coarse_round.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:1001", dot_counts["coarse_round"],
+         coarse_err["coarse_round"], round_ms, round_plain_ms),
+        ("coarse_broadcast", "csrc/coarse_broadcast.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:1185",
+         dot_counts["coarse_broadcast"], coarse_err["coarse_broadcast"], bcast_ms, bcast_plain_ms),
     ]
+    kernels = []
+    for kname, src, replaces, n, err, ms, plain_ms in rows:
+        b_ms, b_by = bounds[kname]
+        kernels.append(dict(
+            name=kname, route="cuda", source=f"rustronomy_watershed_tpu_torch/{src}", replaces=replaces,
+            launches=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None,  # no single PyTorch call computes any of these functions
+        ))
+        print(f"[12 bound] {kname}: {ms:.4f} ms against a bound of {b_ms:.4f} ms ({b_by}); gpu={gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

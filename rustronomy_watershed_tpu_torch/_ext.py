@@ -1,14 +1,17 @@
 """Build, load and count the hand-written CUDA kernels.
 
 At first use ``nvcc`` compiles every ``csrc/*.cu`` file for Hopper
-(``sm_90a``) into one shared library with a plain C interface, under
+(``sm_90a``), one process per source, all started together, and links the
+objects into one shared library with a plain C interface, under
 ``build/rwt_torch_kernels/<hash of the sources>/libkernels.so`` beside the
-package, and ``ctypes`` loads it.  Nothing is built at import time, and
-nothing but the repository's own sources goes into the library.
+package; ``ctypes`` loads it.  Nothing is built at import time, and nothing
+but the repository's own sources goes into the library.
 
-Each kernel wrapper (ops/pack.py, ops/relax.py) adds one to ``launches``
-where it launches its kernel, and its plain-PyTorch twin adds one to the
-``*_plain`` entry, so a run can show which path it took.
+Each kernel wrapper (ops/pack.py, ops/relax.py, ops/scan_merge.py) adds one
+to ``launches`` where it launches its kernel, and its plain-PyTorch twin adds
+one to the ``*_plain`` entry, so a run can show which path it took.  The
+merging driver also records its route per transform: ``merge_shortcut``
+(the single-component broadcast) or ``merge_tail`` (the component-min tail).
 """
 
 from __future__ import annotations
@@ -28,10 +31,16 @@ _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "rwt_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-launches = {"pack": 0, "relax": 0, "pack_plain": 0, "relax_plain": 0}
+KERNELS = ("pack", "relax", "coarsen", "coarse_round", "coarse_broadcast")
+launches = {
+    **{k: 0 for k in KERNELS},
+    **{f"{k}_plain": 0 for k in KERNELS},
+    "merge_shortcut": 0,
+    "merge_tail": 0,
+}
 
 _lib = None
 
@@ -78,24 +87,37 @@ def library_path() -> Path:
     return _BUILD_ROOT / h.hexdigest()[:16] / "libkernels.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the first failure's
+    output once all have ended."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
+
+
 def build() -> Path:
     """Compile the kernels unless this exact source set is already built."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    # Build into a private file, then rename: concurrent builders never
+    nvcc = _nvcc()
+    # Build in a private directory, then rename: concurrent builders never
     # load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in _sources()]
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            for src, obj in zip(_sources(), objs)
+        ])
+        lib_tmp = os.path.join(tmp, out.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs]])
+        os.replace(lib_tmp, out)
     return out
 
 
@@ -107,8 +129,14 @@ def lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         L.rwt_pack.argtypes = [P, P, P, P, P, P, I, I, I, P]
         L.rwt_pack.restype = I
-        L.rwt_relax.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]
+        L.rwt_relax.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
         L.rwt_relax.restype = I
+        L.rwt_coarsen.argtypes = [P, P, I, I, P]
+        L.rwt_coarsen.restype = I
+        L.rwt_coarse_round.argtypes = [P, P, P, P, I, I, P]
+        L.rwt_coarse_round.restype = I
+        L.rwt_coarse_broadcast.argtypes = [P, P, P, I, I, P]
+        L.rwt_coarse_broadcast.restype = I
         L.rwt_error_string.argtypes = [I]
         L.rwt_error_string.restype = ctypes.c_char_p
         _lib = L

@@ -19,6 +19,11 @@ NEVER_FILL: int = 255
 # Sentinel for "no neighbour label"; larger than any possible label.
 INT32_MAX: int = 2**31 - 1
 
+# "No label" in the merging scans and statistics: above every label (labels
+# stay below 2**24 on the coarse tail), below the packed scan flags
+# (rustronomy_watershed_tpu.ops.scan_merge._INF).
+_INF: int = 2**29
+
 _D_BITS: int = 23
 _D_MASK: int = (1 << _D_BITS) - 1
 _UNCLAIMED: int = NEVER_FILL << _D_BITS

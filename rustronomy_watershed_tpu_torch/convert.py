@@ -16,8 +16,11 @@ import torch
 from .constants import _UNCLAIMED, NEVER_FILL
 
 
-def planes_from_jax(v_pad, key_pad, lab_pad, p: int, col_off: int, h: int, w: int, device="cpu"):
-    """Port ``(v, key, lab)`` tensors from the padded JAX planes."""
+def planes_from_jax(v_pad, key_pad, lab_pad, p: int, col_off: int, h: int, w: int, *, device):
+    """Port ``(v, key, lab)`` tensors on ``device`` from the padded JAX
+    planes.  The merging path's state is the JAX fixed point's ``lab_pad``
+    (``relax_packed_planes(fwd_scan="stats")``), read at ``(p, col_off)``
+    like any plane here."""
     rows, cols = slice(p, p + h), slice(col_off, col_off + w)
     v = (np.asarray(v_pad)[rows, cols].astype(np.int32) + 128).astype(np.uint8)
     key = np.asarray(key_pad)[rows, cols].astype(np.int32)

@@ -1,17 +1,14 @@
-"""Merging (void-filling) watershed — not ported yet.
+"""Merging (void-filling) watershed: touching lakes merge and take the
+lower label.
 
-Counterpart of ``rustronomy_watershed_tpu.models.merging``.  The object
-builds, and its WatershedUtils helpers work, but ``transform`` needs the
-component-min kernels of ROADMAP queue 1 item 6.
+Counterpart of ``rustronomy_watershed_tpu.models.merging`` (reference
+``MergingWatershed``, src/lib.rs:1297-1562).
 """
 
 from __future__ import annotations
 
-from .base import _not_yet, _WatershedBase
+from .base import _WatershedBase
 
 
 class MergingWatershed(_WatershedBase):
     _merging = True
-
-    def transform(self, input_img, seeds, device_output: bool = False):
-        raise _not_yet("MergingWatershed.transform", 6)

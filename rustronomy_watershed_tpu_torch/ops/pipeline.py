@@ -1,10 +1,11 @@
-"""End-to-end segmenting watershed with seeds from the image.
+"""End-to-end watershed with seeds from the image.
 
 Counterpart of ``rustronomy_watershed_tpu.ops.pipeline`` with
 ``backend='relax_pallas'``: the pack kernel finds and numbers the seeds
 (reference ``find_local_minima`` order) and writes the packed planes, the
-relax kernel runs to the fixed point.  The seed coordinate list never
-reaches the host.
+relax kernel runs to the fixed point, and for merging the component-min
+stage follows (ops/level_driver.py).  The seed coordinate list never reaches
+the host.
 """
 
 from __future__ import annotations
@@ -31,12 +32,15 @@ def watershed_e2e(
     device="cuda",
 ):
     """Seeds from the image, then the full transform on the packed engine.
-    Returns what run_levels_impl returns."""
+    Returns what run_levels_impl returns.  The seed count is known only on
+    the device, so merging bounds the labels by ``max_seed_count``
+    (pipeline.py:54-55)."""
     return run_levels_impl(
         img,
         None,
         max_water_level=max_water_level,
         merging=merging,
+        n_labels=max_seed_count(tuple(img.shape)) if merging else None,
         collect=collect,
         backend="packed",
         steps=steps,

@@ -25,7 +25,12 @@ csrc/relax.cu on CUDA tensors, ``relax_block_plain`` on CPU tensors) ->
 A call's flags are one int32 tensor ``[changed_any, changed_last, sat]``:
 any centre cell changed in any sweep / in the last sweep (the fixed-point
 witness) / a claimed cell holds label 0 (the d-field saturation signature at
-the fixed point, pallas_relax.py:474-498).
+the fixed point, pallas_relax.py:474-498).  A call with ``stats=True``
+appends the merging shortcut's statistics of its output planes
+(pallas_relax.py:575-604; interior = rows 1..h-2, columns 1..w-2, claimed =
+label != 0): ``[n_unclaimed_interior, any_claimed_border,
+min_claimed_interior_label]``, the last ``_INF`` when no interior cell is
+claimed.
 """
 
 from __future__ import annotations
@@ -33,17 +38,19 @@ from __future__ import annotations
 import torch
 
 from .. import _ext
-from ..constants import _D_BITS, NEVER_FILL, UNCOLOURED
+from ..constants import _D_BITS, _INF, NEVER_FILL, UNCOLOURED
 from .pack import pack_domain, pack_domain_fused
-from .stencil import shift4
+from .stencil import interior_mask, shift4
 
 DEFAULT_STEPS = 8
 ANY, LAST, SAT = 0, 1, 2  # indices into a call's flags tensor
+N_UNCL, ANY_BORDER, GMIN = 3, 4, 5  # ... and its statistics (stats=True)
 
 _BIG_LAB = 2**30
-# Shared memory one block may take (H100: 227 KB) and what a window cell
-# costs there: key + label, double-buffered, int32, plus the u8 value.
-_SMEM_BYTES = 232448
+# Shared memory one block may take (H100: 227 KB, less the kernel's 16
+# static bytes) and what a window cell costs there: key + label,
+# double-buffered, int32, plus the u8 value.
+_SMEM_BYTES = 232448 - 16
 _CELL_BYTES = 17
 _TILES = (64, 32, 16, 8)
 
@@ -66,7 +73,19 @@ def _key_consts(d_bits):
     return d_bits, (1 << d_bits) - 1, NEVER_FILL << d_bits
 
 
-def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None):
+def merge_stats_plain(lab):
+    """``[n_unclaimed_interior, any_claimed_border, min_claimed_interior_label]``
+    of a label plane, as int32 tensors (see the module docstring)."""
+    interior = interior_mask(lab.shape, lab.device)
+    claimed = lab != 0
+    return [
+        (interior & ~claimed).sum(dtype=torch.int32),
+        (~interior & claimed).any().to(torch.int32),
+        torch.where(interior & claimed, lab, _INF).amin(),
+    ]
+
+
+def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False):
     """Plain PyTorch twin of the relax kernel: ``steps`` Jacobi sweeps.
     Returns ``(key', lab', flags)``."""
     _ext.launches["relax_plain"] += 1
@@ -87,7 +106,8 @@ def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None):
         any_c = any_c | last_c
         key, lab = best, new_lab
     sat = ((key < unclaimed) & (lab == 0)).any()
-    flags = torch.stack([any_c, last_c, sat]).to(torch.int32)
+    flags = [t.to(torch.int32) for t in (any_c, last_c, sat)]
+    flags = torch.stack(flags + (merge_stats_plain(lab) if stats else []))
     if out is not None:
         out[0].copy_(key)
         out[1].copy_(lab)
@@ -95,7 +115,7 @@ def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None):
     return key, lab, flags
 
 
-def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None):
+def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False):
     """Launch csrc/relax.cu: ``steps`` Jacobi sweeps of CUDA planes into
     ``out`` (fresh planes when None; never the input planes)."""
     d_bits, _, _ = _key_consts(d_bits)
@@ -114,51 +134,57 @@ def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None):
         raise ValueError("relax kernel output planes must not alias its inputs")
     if steps < 1:
         raise ValueError("steps must be >= 1")
-    flags = torch.empty((3,), dtype=torch.int32, device=key.device)
+    flags = torch.empty((6 if stats else 3,), dtype=torch.int32, device=key.device)
     err = _ext.lib().rwt_relax(
         v.data_ptr(), key.data_ptr(), lab.data_ptr(), key_out.data_ptr(),
         lab_out.data_ptr(), flags.data_ptr(), h, w, steps, d_bits,
-        kernel_tile(steps), _ext.stream_ptr(key),
+        kernel_tile(steps), int(stats), _ext.stream_ptr(key),
     )
     _ext.check(err, "rwt_relax")
     _ext.launches["relax"] += 1
     return key_out, lab_out, flags
 
 
-def relax_block(v, key, lab, steps: int, d_bits=None, *, out=None):
+def relax_block(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False):
     """One call = exactly ``steps`` global Jacobi sweeps of the packed update.
 
     CUDA planes launch the kernel, CPU planes run the plain twin.  Returns
-    ``(key', lab', flags)`` with flags ``[changed_any, changed_last, sat]``.
+    ``(key', lab', flags)`` with flags ``[changed_any, changed_last, sat]``,
+    plus the three statistics with ``stats=True``.
     """
     if key.device.type == "cuda":
-        return relax_block_kernel(v, key, lab, steps, d_bits, out=out)
+        return relax_block_kernel(v, key, lab, steps, d_bits, out=out, stats=stats)
     if key.device.type == "cpu":
-        return relax_block_plain(v, key, lab, steps, d_bits, out=out)
+        return relax_block_plain(v, key, lab, steps, d_bits, out=out, stats=stats)
     raise ValueError(f"unsupported device {key.device}")
 
 
-def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None):
+def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, stats=False):
     """Iterate relax_block until a call's last sweep changed nothing.
 
     ``key``/``lab`` serve as one of the two ping-pong buffers and are
     overwritten.  Returns ``(key, lab, starved)``; ``starved`` is the
-    certifying call's saturation flag.  The host reads one small flag tensor
-    per call.
+    certifying call's saturation flag.  ``stats=True`` appends the
+    certifying call's ``(n_unclaimed_interior, any_claimed_border,
+    min_claimed_interior_label)``: its output planes are the fixed point, so
+    these are the fixed point's statistics.  The host reads one small flag
+    tensor per call.
     """
     src = (key, lab)
     dst = (torch.empty_like(key), torch.empty_like(lab))
     while True:
-        k2, l2, flags = relax_block(v, *src, steps, d_bits, out=dst)
+        k2, l2, flags = relax_block(v, *src, steps, d_bits, out=dst, stats=stats)
         f = flags.tolist()
         src, dst = (k2, l2), src
         if not f[LAST]:
+            if stats:
+                return k2, l2, bool(f[SAT]), (f[N_UNCL], bool(f[ANY_BORDER]), f[GMIN])
             return k2, l2, bool(f[SAT])
 
 
-def relax_packed_planes(img, labels0, *, steps=None, d_bits=None, device="cuda"):
+def relax_packed_planes(img, labels0, *, steps=None, d_bits=None, device="cuda", stats=False):
     """Pack (seeds from ``labels0``, or from the image when it is None) and
-    relax to the fixed point.  Returns ``(key, lab, starved)`` as
+    relax to the fixed point.  Returns what relax_fixed_point returns, with
     ``(h, w)`` planes on ``device``."""
     steps = DEFAULT_STEPS if steps is None else int(steps)
     d_bits, _, _ = _key_consts(d_bits)
@@ -168,7 +194,7 @@ def relax_packed_planes(img, labels0, *, steps=None, d_bits=None, device="cuda")
     else:
         img = torch.as_tensor(img).to(dev)
         v, key, lab = pack_domain(img, torch.as_tensor(labels0).to(dev), d_bits=d_bits)
-    return relax_fixed_point(v, key, lab, steps=steps, d_bits=d_bits)
+    return relax_fixed_point(v, key, lab, steps=steps, d_bits=d_bits, stats=stats)
 
 
 def relax_transform_packed(

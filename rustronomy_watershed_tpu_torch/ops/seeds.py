@@ -45,6 +45,13 @@ def seed_labels_from_mask(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, ranks.reshape(mask.shape), 0).to(torch.int32)
 
 
+def seed_array(seeds) -> np.ndarray:
+    """``(n, 2)`` int64 coordinates from a (y, x) list or array."""
+    if not isinstance(seeds, np.ndarray):
+        seeds = list(seeds)
+    return np.asarray(seeds, dtype=np.int64).reshape(-1, 2)
+
+
 def paint_seeds(shape: tuple[int, int], seeds) -> np.ndarray:
     """int32 label image from an explicit (y, x) list (reference API shape).
 
@@ -53,7 +60,7 @@ def paint_seeds(shape: tuple[int, int], seeds) -> np.ndarray:
     sequential paint loop (vectorised with a keep-last dedup).
     """
     labels = np.zeros(shape, dtype=np.int32)
-    coords = np.asarray(list(seeds), dtype=np.int64).reshape(-1, 2)
+    coords = seed_array(seeds)
     if coords.shape[0]:
         flat = coords[:, 0] * shape[1] + coords[:, 1]
         # Last occurrence of each coordinate wins, like the sequential loop.

@@ -32,7 +32,7 @@ def test_planes_round_trip(shape):
     img = np.random.default_rng(shape[1]).integers(0, 256, size=shape).astype(np.uint8)
     v, key, lab, _ = pack_plain(torch.from_numpy(img))
     padded = planes_to_jax_layout(v, key, lab, TILE, STEPS)
-    back = planes_from_jax(*padded, STEPS, STEPS, *shape)
+    back = planes_from_jax(*padded, STEPS, STEPS, *shape, device="cpu")
     for a, b in zip(back, (v, key, lab)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a.numpy(), b.numpy())
@@ -51,9 +51,9 @@ def test_port_relax_from_jax_state_reaches_jax_fixed_point(jax_calls):
         k_pad, l_pad = jrelax.relax_block(
             v_pad, k_pad, l_pad, jnp.ones((gy,), jnp.int32), tile=TILE, steps=STEPS, interpret=True
         )[:2]
-    v, key, lab = planes_from_jax(v_pad, k_pad, l_pad, STEPS, STEPS, *img.shape)
+    v, key, lab = planes_from_jax(v_pad, k_pad, l_pad, STEPS, STEPS, *img.shape, device="cpu")
     got_k, got_l, starved = relax.relax_fixed_point(v, key, lab, steps=5)
-    want = planes_from_jax(v_pad, want_k, want_l, STEPS, STEPS, *img.shape)
+    want = planes_from_jax(v_pad, want_k, want_l, STEPS, STEPS, *img.shape, device="cpu")
     np.testing.assert_array_equal(got_k.numpy(), want[1].numpy())
     np.testing.assert_array_equal(got_l.numpy(), want[2].numpy())
     assert starved is False

@@ -124,16 +124,15 @@ def test_unserved_entries_raise():
         _cpu_builder().set_backend("bogus")
     wm = _cpu_builder().build_merging()
     assert wm.find_local_minima(img) == []
-    with pytest.raises(NotImplementedError, match="item 6"):
-        wm.transform(img, [(3, 3)])
     ws = _cpu_builder().build_segmenting()
     for call, item in (
         (lambda: ws.transform_to_list(img, []), 8),
         (lambda: ws.transform_history(img, []), 8),
-        (lambda: ws.transform_batch(img[None], [[]]), 7),
+        (lambda: wm.transform_to_list(img, []), 8),
         (lambda: ws.transform_with_hook(img, []), 11),
-        (lambda: run_levels_impl(img, None, max_water_level=254, merging=True, device="cpu"), 6),
+        (lambda: wm.transform_with_hook(img, []), 11),
         (lambda: run_levels_impl(img, None, max_water_level=254, collect="sizes", device="cpu"), 8),
+        (lambda: run_levels_impl(img, None, max_water_level=254, merging=True, n_labels=1, collect="sizes", device="cpu"), 8),
     ):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             call()

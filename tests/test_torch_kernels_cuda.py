@@ -14,6 +14,7 @@ import torch
 
 from rustronomy_watershed_tpu_torch import _ext
 from rustronomy_watershed_tpu_torch.ops import pack, priority, relax
+from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
 from rustronomy_watershed_tpu_torch.ops.pipeline import watershed_e2e
 from rustronomy_watershed_tpu_torch.ops.seeds import local_extrema_mask, seed_labels_from_mask
 
@@ -92,3 +93,65 @@ def test_relax_kernel_refuses_aliased_output(cuda):
     v, key, lab, _ = pack.pack_kernel(torch.from_numpy(_field((16, 16), 9)).to(cuda))
     with pytest.raises(ValueError, match="alias"):
         relax.relax_block(v, key, lab, 4, out=(key, torch.empty_like(lab)))
+
+
+@pytest.mark.parametrize("shape", [(5, 7), (130, 257), (2, 64)])
+@pytest.mark.parametrize("border_seed", [False, True])
+def test_relax_stats_match_twin(cuda, shape, border_seed):
+    img = torch.from_numpy(_field(shape, 254, seed=shape[0])).to(cuda)
+    v, key, lab, _ = pack.pack_kernel(img)
+    if border_seed:
+        key[0, shape[1] // 2], lab[0, shape[1] // 2] = 0, 10**6
+    for _ in range(3):
+        got = relax.relax_block(v, key, lab, 8, stats=True)
+        _assert_same(got, relax.relax_block_plain(v, key, lab, 8, stats=True))
+        assert got[2].shape == (6,)
+        key, lab = got[0], got[1]
+
+
+def _relaxed_labels(shape, seed, nan=0.1):
+    """A fixed point's label plane: the merging tail's input."""
+    img = _field(shape, 254, seed=seed)
+    img[np.random.default_rng(seed + 1).random(shape) < nan] = 255
+    return relax.relax_packed_planes(img, None, device="cuda")[1]
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (1023, 1031), (33, 3), (1, 5), (256, 256)])
+def test_coarse_kernels_match_twins(cuda, shape):
+    lab = _relaxed_labels(shape, seed=shape[1])
+    c = sm.coarsen_kernel(lab)
+    _assert_same([c], [sm.coarsen_plain(lab)])
+    scratch = torch.empty_like(c)
+    for _ in range(64):
+        got = sm.coarse_round_kernel(c, scratch=scratch)
+        _assert_same(got, sm.coarse_round_plain(c))
+        c = got[0]
+        if got[1].item() == 0:
+            break
+    assert got[1].item() == 0
+    fine = sm.coarse_broadcast_kernel(c, lab)
+    _assert_same([fine], [sm.coarse_broadcast_plain(c, lab)])
+    _assert_same([fine], [sm.component_min_labels_plain(lab)])
+
+
+def test_merging_e2e_matches_exact_engine(cuda):
+    for nan, route in ((0.0, "merge_shortcut"), (0.1, "merge_tail")):
+        img = torch.from_numpy(_field((512, 640), 254, seed=5)).to(cuda)
+        img[torch.from_numpy(np.random.default_rng(9).random((512, 640)) < nan).to(cuda)] = 255
+        if nan == 0.0:
+            img[img == 255] = 254
+        seg, _ = priority.relax_transform(img, seed_labels_from_mask(local_extrema_mask(img)))
+        _ext.reset_launches()
+        got = watershed_e2e(img, merging=True, device=cuda)
+        assert _ext.launches[route] == 1
+        assert sum(_ext.launches[f"{k}_plain"] for k in _ext.KERNELS) == 0
+        assert (_ext.launches["coarse_round"] > 0) == (route == "merge_tail")
+        assert torch.equal(got, sm.component_min_labels_plain(seg))
+
+
+def test_failed_coarse_gate_raises_on_cuda(cuda):
+    lab = torch.ones((8, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        sm.component_min_coarse(lab, 1)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        sm.component_min_coarse(torch.ones((8, 8), dtype=torch.int32, device=cuda), 1 << 24)

@@ -39,7 +39,7 @@ def _assert_planes_equal(got, want):
 def test_pack_plain_matches_jax_fused_kernel(shape, tile, steps, hi):
     img = _field(shape, seed=shape[0], hi=hi)
     v_pad, k_pad, l_pad, n = j_pack_fused(jnp.asarray(img), tile, steps, interpret=True)
-    want = planes_from_jax(v_pad, k_pad, l_pad, steps, steps, *shape)
+    want = planes_from_jax(v_pad, k_pad, l_pad, steps, steps, *shape, device="cpu")
     got = pack.pack_domain_fused(img, "cpu")
     _assert_planes_equal(got[:3], want)
     assert got[3].dtype == torch.int32 and int(got[3]) == int(n)
@@ -60,7 +60,7 @@ def test_pack_domain_matches_jax_with_border_seeds():
     img = _field(shape, seed=4)
     seeds = [(0, 5), (3, 3), (19, 25), (10, 0), (12, 13)]  # border seeds: edge correction (Q7)
     lab0 = paint_seeds(shape, seeds)
-    want = planes_from_jax(*j_pack_domain(jnp.asarray(img), jnp.asarray(lab0), 8, 8), 8, 8, *shape)
+    want = planes_from_jax(*j_pack_domain(jnp.asarray(img), jnp.asarray(lab0), 8, 8), 8, 8, *shape, device="cpu")
     got = pack.pack_domain(torch.from_numpy(img), torch.from_numpy(lab0))
     _assert_planes_equal(got, want)
 

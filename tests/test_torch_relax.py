@@ -1,9 +1,12 @@
-"""Port parity: the relax stage (plain twin of csrc/relax.cu, the fixed point,
-the packed transform, the exact engine) against the JAX Pallas relax kernel
-in interpret mode and the JAX exact engine.  Integer outputs, tolerance 0."""
+"""Port parity: the relax stage (plain twin of csrc/relax.cu with and without
+the merging statistics, the fixed point, the packed transform, the exact
+engine) against the JAX Pallas relax kernel in interpret mode and the JAX
+exact engine.  Integer outputs, tolerance 0."""
 
 import warnings
+from functools import partial
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,8 +15,9 @@ import torch
 from rustronomy_watershed_tpu.ops import pallas_relax as jrelax
 from rustronomy_watershed_tpu.ops import priority as jprio
 from rustronomy_watershed_tpu.ops.seeds import local_extrema_mask as j_mask
+from rustronomy_watershed_tpu.ops.seeds import seed_labels_from_mask as j_number
 from rustronomy_watershed_tpu_torch import _ext
-from rustronomy_watershed_tpu_torch.constants import _D_BITS, _D_MASK, _UNCLAIMED, NEVER_FILL
+from rustronomy_watershed_tpu_torch.constants import _D_BITS, _D_MASK, _INF, _UNCLAIMED, NEVER_FILL
 from rustronomy_watershed_tpu_torch.convert import planes_from_jax, planes_to_jax_layout
 from rustronomy_watershed_tpu_torch.ops import priority, relax
 from rustronomy_watershed_tpu_torch.ops.pack import pack_domain, pack_plain
@@ -42,7 +46,7 @@ def test_relax_block_plain_matches_jax_relax_block(start_sweeps):
         jnp.asarray(v_pad), jnp.asarray(k_pad), jnp.asarray(l_pad), jnp.ones((gy,), jnp.int32),
         tile=tile, steps=steps, interpret=True, pipelined=True,
     )
-    want = planes_from_jax(v_pad, jk, jl, steps, steps, *img.shape)
+    want = planes_from_jax(v_pad, jk, jl, steps, steps, *img.shape, device="cpu")
     k2, l2, flags = relax.relax_block_plain(v, key, lab, steps)
     np.testing.assert_array_equal(k2.numpy(), want[1].numpy())
     np.testing.assert_array_equal(l2.numpy(), want[2].numpy())
@@ -189,3 +193,61 @@ def test_relax_dispatch_and_fixed_point_buffers():
     assert relax.kernel_tile(8) == 64 and relax.kernel_tile(26) == 64 and relax.kernel_tile(27) == 32
     with pytest.raises(ValueError, match="steps"):
         relax.kernel_tile(60)
+
+
+# The JAX merging path's relax (stats-only epilogue), jitted so the fields of
+# one shape share a compilation.
+_j_stats_fixed_point = jax.jit(
+    partial(jrelax.relax_packed_planes, fwd_scan="stats", interpret=True), static_argnames="steps"
+)
+
+
+def _numbered(img):
+    return np.array(j_number(j_mask(jnp.asarray(img, jnp.int32))))
+
+
+def _stats_field(kind, rng):
+    if kind == "dense":
+        img = rng.integers(0, 254, (48, 64)).astype(np.uint8)
+        return img, _numbered(img)
+    if kind == "nan_barrier":
+        img = rng.integers(0, 200, (48, 64)).astype(np.uint8)
+        img[12:36, 30:34] = NEVER_FILL
+        return img, _numbered(img)
+    if kind == "border_seed":
+        img = rng.integers(0, 254, (48, 64)).astype(np.uint8)
+        lab0 = _numbered(img)
+        lab0[0, 10] = lab0.max() + 1
+        return img, lab0
+    img = rng.integers(0, 254, (2, 64)).astype(np.uint8)  # no interior
+    return img, np.zeros((2, 64), np.int32)
+
+
+@pytest.mark.parametrize("kind", ["dense", "nan_barrier", "border_seed", "empty_interior"])
+def test_relax_stats_match_jax_mstats(rng, kind):
+    """The twin's statistics of the fixed point equal the JAX stats-only
+    epilogue's where JAX certified in its first call (tests/
+    test_component_shortcut.py:47-101)."""
+    img, lab0 = _stats_field(kind, rng)
+    key_pad, lab_pad, p, col_off, tile, _, y0_valid, mstats, _ = _j_stats_fixed_point(
+        jnp.asarray(img, jnp.int32), jnp.asarray(lab0), steps=64
+    )
+    assert bool(y0_valid)
+    p, col_off, tile = int(p), int(col_off), int(tile)
+    v_pad = jrelax.pack_domain(img, lab0, tile, p)[0]
+    v, key, lab = planes_from_jax(v_pad, key_pad, lab_pad, p, col_off, *img.shape, device="cpu")
+    want = tuple(int(m) for m in mstats)
+    flags = relax.relax_block_plain(v, key, lab, 1, stats=True)[2].tolist()
+    assert flags[relax.LAST] == 0  # the JAX planes are the fixed point
+    assert tuple(flags[relax.N_UNCL :]) == want
+    # The port's own fixed point, through the driver, gives the same numbers.
+    _, _, starved, got = relax.relax_packed_planes(img, lab0, steps=8, device="cpu", stats=True)
+    assert (got[0], int(got[1]), got[2]) == want and starved is False
+    if kind == "dense":
+        assert want == (0, 0, 1)  # row-major numbering: label 1 is the least
+    elif kind == "nan_barrier":
+        assert want[0] > 0 and want[1] == 0
+    elif kind == "border_seed":
+        assert want[1] == 1
+    else:
+        assert want == (0, 0, _INF)

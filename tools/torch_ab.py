@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's end-to-end transforms of one or more checkouts,
+in turns, on one NVIDIA GPU.
+
+    python3 tools/torch_ab.py [--profile] DIR [DIR ...]
+
+Each DIR is the root of a checkout of this repository (``.`` for this one);
+name a DIR twice to run it twice, e.g. ``old new new old`` for an A/B on one
+card.  For each DIR in the order given, a fresh process imports the port from
+that checkout (building its kernels there) and times ``watershed_e2e`` on the
+4096^2 fields of ``bench.py``: the uniform u8 field ``default_rng(0)
+.integers(0, 254)`` and the same draw with 10% of its pixels set to 255 (NaN
+dots).  Segmenting on the uniform field; merging on both, where the checkout
+serves it.  Median of 9 warm runs, CUDA events around each call (the host's
+flag reads inside).  ``--profile`` also traces 5 runs of each under
+``torch.profiler``: device busy time per run (the union of the card's kernel,
+copy and set intervals), the wall of the same traced runs (CUDA events), the
+idle share 1 - busy / wall, and the device time per kernel name.
+
+Prints the card's name and power limit, then one JSON line per run.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+SIDE = 4096
+
+
+def _fields():
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    dense = rng.integers(0, 254, (SIDE, SIDE)).astype(np.uint8)
+    dots = dense.copy()
+    dots[rng.random((SIDE, SIDE)) < 0.1] = 255
+    return dense, dots
+
+
+def _busy_us(events) -> float:
+    """Union of the device intervals of the traced events, in us."""
+    from torch.autograd import DeviceType
+
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in events if e.device_type == DeviceType.CUDA
+    )
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def child(profile: bool) -> dict:
+    import numpy as np
+    import torch
+
+    from rustronomy_watershed_tpu_torch import _ext
+    from rustronomy_watershed_tpu_torch.ops.pipeline import watershed_e2e
+
+    dev = torch.device("cuda")
+    _ext.lib()
+    dense, dots = (torch.from_numpy(a).to(dev) for a in _fields())
+    cases = {
+        "segmenting": lambda: watershed_e2e(dense, device=dev),
+        "merging_dense": lambda: watershed_e2e(dense, merging=True, device=dev),
+        "merging_nan10": lambda: watershed_e2e(dots, merging=True, device=dev),
+    }
+
+    def timed(fn, reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    out = {"checkout": os.getcwd()}
+    for name, fn in cases.items():
+        try:
+            fn()
+        except NotImplementedError:  # a checkout that does not serve it
+            out[name] = None
+            continue
+        torch.cuda.synchronize()
+        _ext.reset_launches()
+        fn()
+        counts = {k: v for k, v in _ext.launches.items() if v}
+        ms = float(np.median([timed(fn, 1) for _ in range(9)]))
+        res = {"ms": ms, "mpix_s": SIDE * SIDE / ms / 1e3, "launches": counts}
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+            with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                wall = timed(fn, 5)
+            busy = _busy_us(prof.events()) / 1e3
+            per_kernel = {}
+            for e in prof.key_averages():
+                t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+                if t and e.device_type.name == "CUDA":
+                    per_kernel[e.key[:60]] = t / 1e3 / 5
+            res.update(
+                traced_wall_ms=wall / 5, busy_ms=busy / 5, idle_share=1 - busy / wall,
+                device_ms_by_kernel=dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]),
+            )
+        out[name] = res
+    return out
+
+
+def main(argv) -> int:
+    profile = "--profile" in argv
+    argv = [a for a in argv if a != "--profile"]
+    if argv and argv[0] == "--child":
+        print(json.dumps(child(profile)))
+        return 0
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    me = os.path.abspath(__file__)
+    for d in argv:
+        d = os.path.abspath(d)
+        env = dict(os.environ, PYTHONPATH=d)
+        cmd = [sys.executable, me, "--child"] + (["--profile"] if profile else [])
+        res = subprocess.run(cmd, cwd=d, env=env, capture_output=True, text=True)
+        if res.returncode != 0:
+            print(res.stderr[-4000:], file=sys.stderr)
+            return res.returncode
+        print(res.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

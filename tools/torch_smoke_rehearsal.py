@@ -1,0 +1,103 @@
+#!/usr/bin/env python3
+"""Rehearse ``chip_smoke.py`` on a host without a GPU.
+
+    python3 tools/torch_smoke_rehearsal.py
+
+Runs every phase of ``chip_smoke.py`` on the CPU at cut sizes, with each
+CUDA kernel wrapper replaced by its plain PyTorch twin (counted as the
+kernel, so the launch checks see the kernels), ``torch.cuda``'s
+availability, events and synchronise faked, and no ``nvcc``.  It finds wrong
+paths, arguments, shapes and control flow in the script before a chip call;
+it says nothing about the kernels themselves or about times (the printed
+times are the CPU's).  The size cuts are textual replacements in the
+script's source: each must match, so a change to the script that moves one
+fails here loudly.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+import types
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CUTS = [
+    ('SIDE = 4096', 'SIDE = 256'),
+    ('(1024, 1024)', '(512, 512)'),
+    ('0, 1024, 60', '0, 512, 60'),
+    ('integers(1, 1023, (40, 2))', 'integers(1, 511, (40, 2))'),
+    ('(1023, 500)', '(511, 500)'),
+    ('(301, 1023)', '(301, 511)'),
+    ('(16, 1024, 1024)', '(4, 64, 64)'),
+    ('torch.device("cuda")', 'torch.device("cpu")'),
+    ('set_device("cuda")', 'set_device("cpu")'),
+]
+
+
+def _fake_kernels():
+    from rustronomy_watershed_tpu_torch import _ext
+    from rustronomy_watershed_tpu_torch.ops import pack, relax
+    from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
+
+    def as_kernel(plain, key):
+        def run(*args, **kw):
+            out = plain(*args, **kw)
+            _ext.launches[key + "_plain"] -= 1
+            _ext.launches[key] += 1
+            return out
+
+        return run
+
+    pack.pack_kernel = as_kernel(pack.pack_plain, "pack")
+    relax.relax_block_kernel = as_kernel(relax.relax_block_plain, "relax")
+    relax.relax_block = lambda *a, **k: relax.relax_block_kernel(*a, **k)
+
+    def pack_fused(img, device, **kw):
+        return pack.pack_kernel(torch.as_tensor(img).to(torch.uint8).contiguous(), **kw)
+
+    pack.pack_domain_fused = relax.pack_domain_fused = pack_fused
+    sm.coarsen_kernel = as_kernel(sm.coarsen_plain, "coarsen")
+    sm.coarse_round_kernel = as_kernel(sm.coarse_round_plain, "coarse_round")
+    sm.coarse_broadcast_kernel = as_kernel(sm.coarse_broadcast_plain, "coarse_broadcast")
+    sm._dispatch = lambda kernel, plain, lead: kernel
+    _ext.lib = lambda: None
+    _ext.library_path = lambda: "(no library: rehearsal)"
+
+
+class _Event:
+    def __init__(self, **_):
+        self.t = 0.0
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def main() -> int:
+    sys.path.insert(0, ROOT)
+    path = os.path.join(ROOT, "chip_smoke.py")
+    src = open(path).read()
+    for old, new in CUTS:
+        if old not in src:
+            raise SystemExit(f"chip_smoke.py no longer contains {old!r}: update CUTS")
+        src = src.replace(old, new)
+    _fake_kernels()
+    torch.cuda.is_available = lambda: True
+    torch.cuda.get_device_name = lambda i=0: "rehearsal (CPU)"
+    torch.cuda.device_count = lambda: 1
+    torch.cuda.synchronize = lambda *a: None
+    torch.cuda.Event = _Event
+    mod = types.ModuleType("chip_smoke_rehearsal")
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+    mod.gpu_line = lambda: "rehearsal (CPU), no power limit"
+    return mod.main()
+
+
+if __name__ == "__main__":
+    sys.exit(main())
