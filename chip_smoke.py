@@ -30,9 +30,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden")
 SIDE = 4096  # the benchmarked fields: bench.py's u8 inputs (dense, 10% NaN dots)
 
-# The least time the card could take (on-chip-measurement guide, H100 SXM at
-# 700 W): bytes over 3.35 TB/s, operations over 67 T/s (the guide's rate
-# outside the tensor cores, the only one it gives for 32-bit work).
+# The least time the card could take (H100 SXM at 700 W): bytes over
+# 3.35 TB/s, operations over 67 T/s (the peak rate outside the tensor cores,
+# used for all 32-bit work).
 HBM_BYTES_PER_MS = 3.35e9
 OPS_PER_MS = 67e9
 
