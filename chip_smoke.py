@@ -8,7 +8,10 @@ Builds the hand-written CUDA kernels from csrc/, holds each against its plain
 PyTorch twin on the card, drives both main paths through the entry points a
 user calls (the public builder API on the committed goldens, ``watershed_e2e``
 on the 4096^2 u8 fields, ``transform_batch`` on 16 x 1024^2 cutouts) for the
-segmenting and the merging variant, checks the labels, and times the card.
+segmenting and the merging variant, then the level-sweep engine
+(``set_backend("pallas")``, the flood kernel) at 4096^2 and the per-level API
+(``transform_to_list``, ``transform_history``, hooks, progress, plots) at
+1024^2, checks the labels against the packed engine, and times the card.
 One line per phase; the line before the last is the kernel table as JSON,
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the run exits non-zero; without CUDA it exits non-zero at once.  Imports
@@ -17,8 +20,12 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -64,10 +71,11 @@ def main() -> int:
         return 1
 
     from rustronomy_watershed_tpu_torch import _ext
-    from rustronomy_watershed_tpu_torch.ops import pack, priority, relax
+    from rustronomy_watershed_tpu_torch.ops import flood, flood_block, pack, priority, relax
     from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
+    from rustronomy_watershed_tpu_torch.ops.level_driver import run_levels_impl
     from rustronomy_watershed_tpu_torch.ops.pipeline import watershed_e2e
-    from rustronomy_watershed_tpu_torch.ops.seeds import paint_seeds
+    from rustronomy_watershed_tpu_torch.ops.seeds import local_extrema_mask, paint_seeds, seed_labels_from_mask
     from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
 
     dev = torch.device("cuda")
@@ -239,6 +247,15 @@ def main() -> int:
             ts.append(a.elapsed_time(b))
         return float(np.median(ts))
 
+    def once_ms(fn) -> float:
+        """One warm run (everything it needs already built), CUDA events."""
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
     calls = launches["relax"]
     e2e_ms = median_ms(lambda: watershed_e2e(img, device=dev), 9)
     print(
@@ -383,6 +400,126 @@ def main() -> int:
           f"first coarse round: kernel {round_ms:.3f} ms, plain {round_plain_ms:.3f} ms; "
           f"broadcast: kernel {bcast_ms:.3f} ms, plain {bcast_plain_ms:.3f} ms; gpu={gpu}")
 
+    # -- 13: the flood kernel against its twin, both flags included ----------
+    img_np, odd_dev = img.cpu().numpy(), to_dev(odd)
+    flood_cases = [
+        (f"uniform {SIDE}^2", img, (0, 60, 200)),
+        (f"10% 255-dots {SIDE}^2", dots_dev, (0, 60, 200)),
+        ("plateau 0..3 1024^2", to_dev(fields["plateau 0..3 1024^2"]), (0, 1, 3)),
+        ("odd 1023x1031 10% dots", odd_dev, (0, 100)),
+        ("uniform 63x97", to_dev(fields["uniform 63x97"]), (0, 120, 254)),
+    ]
+    flood_err, fs = 0, flood_block.DEFAULT_STEPS
+    for label, field, levels in flood_cases:
+        fimg = flood_block.flood_image(field)
+        fresh = seed_labels_from_mask(local_extrema_mask(field))
+        for lvl in levels:
+            # A fresh state (seeds only) and a mid-level one (two twin calls in).
+            mid = flood_block.flood_block_plain(fimg, flood_block.flood_block_plain(fimg, fresh, lvl, fs)[0], lvl, fs)[0]
+            for start, state in (("fresh", fresh), ("mid", mid)):
+                got = flood_block.flood_block_kernel(fimg, state, lvl, fs)
+                want = flood_block.flood_block_plain(fimg, state, lvl, fs)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                check(err == 0, f"flood kernel == twin on {label} at level {lvl} from a {start} state")
+                flood_err = max(flood_err, err)
+                print(f"[13 flood] {label} level {lvl} {start}: plane and flags [painted, not converged] "
+                      f"{got[1].tolist()} bit-equal to twin")
+    fimg = flood_block.flood_image(img)
+    fresh = seed_labels_from_mask(local_extrema_mask(img))
+    fixed60, _, painted = flood_block.flood_fixed_point_block(fimg, fresh.clone(), 60)
+    want, want_painted = flood.flood_fixed_point(img, fresh, 60)
+    check(torch.equal(fixed60, want) and painted == want_painted, "flood kernel fixed point == plain fixed point")
+    print(f"[13 flood] {SIDE}^2 level-60 fixed point through the kernel equals the plain sweeps (painted {painted})")
+
+    # -- 14: the level-sweep engine (backend 'pallas') at full width -----------
+    def build(variant, backend):
+        return getattr(TransformBuilder.default().set_device("cuda").set_backend(backend), f"build_{variant}")()
+
+    level_runs = {}
+    for label, field_np in ((f"uniform {SIDE}^2", img_np), (f"10% 255-dots {SIDE}^2", dots)):
+        seeds_f = ws.find_local_minima(field_np)
+        for variant in ("segmenting", "merging"):
+            want = build(variant, "auto").transform(field_np, seeds_f, device_output=True)
+            _ext.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = build(variant, "pallas").transform(field_np, seeds_f, device_output=True)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = dict(_ext.launches)
+            check(torch.equal(got, want), f"level-sweep {variant} labels == packed engine on {label}")
+            check(counts["flood"] > 0 and counts["flood_plain"] == 0, f"level sweep launched the flood kernel ({label})")
+            check(sum(counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, f"no plain twin on the level sweep ({label})")
+            level_runs[(label, variant)] = counts
+            print(f"[14 level sweep] {label} {variant}: labels equal the packed engine; {counts['flood']} flood calls, "
+                  f"{counts['merge_round']} merge rounds; API wall {wall:.1f} ms; gpu={gpu}")
+    lab_u = to_dev(paint_seeds(img_np.shape, ws.find_local_minima(img_np)))
+    n_seeds = int(lab_u.max())
+    for variant in ("segmenting", "merging"):
+        lvl_ms = once_ms(lambda: run_levels_impl(
+            img, lab_u, n_labels=n_seeds, max_water_level=254, merging=variant == "merging",
+            backend="flood", device=dev))
+        print(f"[14 time] {SIDE}^2 level-sweep {variant} e2e (driver, seeds painted) {lvl_ms:.1f} ms "
+              f"= {SIDE * SIDE / lvl_ms / 1e3:.2f} Mpix/s; gpu={gpu}")
+
+    # -- 15: the per-level API at 1024^2 on golden_morph_v1 --------------------
+    zc = np.load(os.path.join(GOLDEN, "golden_morph_v1.npz"))
+    pimg = zc["img"]
+    pseeds = ws.find_local_minima(pimg)
+    plot_root = os.path.join(HERE, "build", "smoke_plots")
+
+    def digest(ctx):
+        return (ctx.water_level, hashlib.sha1(ctx.colours.tobytes()).hexdigest(),
+                hashlib.sha1(ctx.image.tobytes()).hexdigest(), ctx.seeds[-1])
+
+    for variant in ("segmenting", "merging"):
+        auto, sweep = build(variant, "auto"), build(variant, "pallas")
+        walls, results = {}, {}
+        for route, wsx in (("auto", auto), ("pallas", sweep)):
+            t0 = time.perf_counter()
+            results[(route, "list")] = wsx.transform_to_list(pimg, pseeds, counts_length=len(pseeds) + 1)
+            walls[(route, "to_list")] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            results[(route, "history")] = wsx.transform_history(pimg, pseeds)
+            walls[(route, "history")] = (time.perf_counter() - t0) * 1e3
+        for what in ("list", "history"):
+            a, b = results[("auto", what)], results[("pallas", what)]
+            check(len(a) == len(b) == 255 and all(x[0] == y[0] and np.array_equal(x[1], y[1]) for x, y in zip(a, b)),
+                  f"{variant} transform_{what} on 'auto' == on 'pallas'")
+        if variant == "merging":
+            check(np.array_equal(np.stack([r for _, r in results[("auto", "list")]]), zc["merging/sizes"]),
+                  "merging transform_to_list == golden sizes")
+        results.clear()
+        replay = getattr(TransformBuilder.default().set_device("cuda").set_wlvl_hook(digest), f"build_{variant}")()
+        hook_replay = replay.transform_with_hook(pimg, pseeds)
+        host = getattr(TransformBuilder.default().set_device("cuda").set_wlvl_hook(digest).enable_progress(),
+                       f"build_{variant}")()
+        bar = io.StringIO()
+        with contextlib.redirect_stderr(bar):
+            hook_host = host.transform_with_hook(pimg, pseeds)
+        check(hook_replay == hook_host and len(hook_host) == 255, f"{variant} hook views: replay == host loop")
+        check("water level 254/254" in bar.getvalue(), f"{variant} progress bar reached the last level")
+        folder = os.path.join(plot_root, variant)
+        shutil.rmtree(folder, ignore_errors=True)
+        os.makedirs(folder)
+        plotter = getattr(TransformBuilder.default().set_device("cuda").set_plot_folder(folder), f"build_{variant}")()
+        check(np.array_equal(plotter.transform(pimg, pseeds), auto.transform(pimg, pseeds)), f"{variant} plotted transform")
+        files = os.listdir(folder)
+        check(sorted(files) == sorted(f"ws_lvl{i}.png" for i in range(255)), f"{variant} plots ws_lvl0..254.png written")
+        print(f"[15 per-level] golden_morph_v1 1024^2 {variant}: to_list and history equal on 'auto' and 'pallas'; "
+              f"hook replay == progress host loop; {len(files)} plots")
+        print(f"[15 time] 1024^2 {variant} wall ms: to_list auto {walls[('auto', 'to_list')]:.1f}, "
+              f"pallas {walls[('pallas', 'to_list')]:.1f}; history auto {walls[('auto', 'history')]:.1f}, "
+              f"pallas {walls[('pallas', 'history')]:.1f}; gpu={gpu}")
+
+    # -- 16: flood kernel times --------------------------------------------------
+    flood_ms = median_ms(lambda: flood_block.flood_block_kernel(fimg, fresh, 200, fs), 20)
+    flood_plain_ms = median_ms(lambda: flood_block.flood_block_plain(fimg, fresh, 200, fs), 5)
+    quiet_ms = median_ms(lambda: flood_block.flood_block_kernel(fimg, fixed60, 60, fs), 20)
+    print(f"[16 time] flood {SIDE}^2 one call of {fs} sweeps at level 200 from the seeds: kernel {flood_ms:.4f} ms, "
+          f"plain {flood_plain_ms:.3f} ms; a quiet call (the level-60 fixed point) {quiet_ms:.4f} ms; gpu={gpu}")
+
     # Bytes each function must move at 4096^2 (each input read once, each
     # output written once) and the integer operations it does per cell.
     px, cells = SIDE * SIDE, (SIDE // 2) * SIDE
@@ -392,6 +529,7 @@ def main() -> int:
         "coarsen": bound(px * 4 + cells * 4, cells * 40),
         "coarse_round": bound(2 * cells * 4, 2 * cells * 12),  # plane in, plane out; two passes of scans
         "coarse_broadcast": bound(px * 4 + cells * 4 + px * 4, px * 6),
+        "flood": bound(px * (1 + 4 + 4), px * fs * 12),  # image + labels in, labels out; ~12 ops per cell and sweep
     }
     dot_counts = merge_runs["10% dots"]
     rows = [
@@ -403,6 +541,8 @@ def main() -> int:
          coarse_err["coarse_round"], round_ms, round_plain_ms),
         ("coarse_broadcast", "csrc/coarse_broadcast.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:1185",
          dot_counts["coarse_broadcast"], coarse_err["coarse_broadcast"], bcast_ms, bcast_plain_ms),
+        ("flood", "csrc/flood.cu", "rustronomy_watershed_tpu/ops/pallas_flood.py:106",
+         level_runs[(f"uniform {SIDE}^2", "segmenting")]["flood"], flood_err, flood_ms, flood_plain_ms),
     ]
     kernels = []
     for kname, src, replaces, n, err, ms, plain_ms in rows:

@@ -7,11 +7,13 @@ objects into one shared library with a plain C interface, under
 package; ``ctypes`` loads it.  Nothing is built at import time, and nothing
 but the repository's own sources goes into the library.
 
-Each kernel wrapper (ops/pack.py, ops/relax.py, ops/scan_merge.py) adds one
-to ``launches`` where it launches its kernel, and its plain-PyTorch twin adds
-one to the ``*_plain`` entry, so a run can show which path it took.  The
-merging driver also records its route per transform: ``merge_shortcut``
-(the single-component broadcast) or ``merge_tail`` (the component-min tail).
+Each kernel wrapper (ops/pack.py, ops/relax.py, ops/scan_merge.py,
+ops/flood_block.py) adds one to ``launches`` where it launches its kernel,
+and its plain-PyTorch twin adds one to the ``*_plain`` entry, so a run can
+show which path it took.  The merging driver also records its route per
+transform: ``merge_shortcut`` (the single-component broadcast) or
+``merge_tail`` (the component-min tail); the level sweep's merge phase
+counts its label-table rounds as ``merge_round`` (ops/merge.py).
 """
 
 from __future__ import annotations
@@ -34,12 +36,13 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-KERNELS = ("pack", "relax", "coarsen", "coarse_round", "coarse_broadcast")
+KERNELS = ("pack", "relax", "coarsen", "coarse_round", "coarse_broadcast", "flood")
 launches = {
     **{k: 0 for k in KERNELS},
     **{f"{k}_plain": 0 for k in KERNELS},
     "merge_shortcut": 0,
     "merge_tail": 0,
+    "merge_round": 0,
 }
 
 _lib = None
@@ -137,6 +140,8 @@ def lib() -> ctypes.CDLL:
         L.rwt_coarse_round.restype = I
         L.rwt_coarse_broadcast.argtypes = [P, P, P, I, I, P]
         L.rwt_coarse_broadcast.restype = I
+        L.rwt_flood.argtypes = [P, P, P, P, I, I, I, I, I, P]
+        L.rwt_flood.restype = I
         L.rwt_error_string.argtypes = [I]
         L.rwt_error_string.restype = ctypes.c_char_p
         _lib = L

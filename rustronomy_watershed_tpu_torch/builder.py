@@ -3,7 +3,8 @@
 Counterpart of ``rustronomy_watershed_tpu.builder`` (the reference's
 ``TransformBuilder``, src/lib.rs:864-1065): the same
 chainable setters and ``BuildErr`` validation, plus ``set_device``.  Options
-this slice does not serve are accepted by their setters and refused by
+the port does not serve yet (the random tie-break, checkpointing, the mesh
+and the native backend) are accepted by their setters and refused by
 ``build_*`` with NotImplementedError naming the ROADMAP item that brings
 them.
 """
@@ -11,12 +12,10 @@ them.
 from __future__ import annotations
 
 from .constants import ALWAYS_FILL, NORMAL_MAX
-from .models.base import _BACKENDS, _not_yet
+from .models.base import _not_yet
 from .models.merging import MergingWatershed
 from .models.segmenting import SegmentingWatershed
 
-# Backend -> ROADMAP queue 1 item that ports its engine.
-_BACKEND_ITEMS = {"pallas": 11, "jnp": 11, "native": 8}
 
 
 class BuildErr(Exception):
@@ -105,13 +104,19 @@ class TransformBuilder:
         return self
 
     def set_sweep_impl(self, sweep_fn) -> "TransformBuilder":
+        """Advanced: replace the flood sweep of the level sweep and the
+        host-stepped loop with ``sweep_fn(img, labels, lvl)`` on torch
+        tensors; it must equal >= 1 ``ops.flood.flood_sweep``s (e.g.
+        ``ops.flood_block.make_sweep_fn()``)."""
         self.sweep_fn = sweep_fn
         return self
 
     def set_backend(self, backend: str) -> "TransformBuilder":
-        """'auto' (the packed engine: CUDA kernels on the card) or 'relax'
-        (the exact plain engine).  The JAX package's other names are
-        accepted here and refused at build time."""
+        """'auto' (the packed relaxation engine: CUDA kernels on the card),
+        'relax' (the exact plain engine), 'pallas' (the level sweep on the
+        flood kernel) or 'jnp' (the level sweep on plain flood sweeps); all
+        give the same labels.  'relax_pallas' and 'native' are accepted here
+        and refused at build time."""
         if backend not in ("auto", "relax", "relax_pallas", "pallas", "jnp", "native"):
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
@@ -138,16 +143,6 @@ class TransformBuilder:
             raise BuildErr(BuildErr.MAX_TOO_HIGH, self.max_water_level)
         if self.max_water_level <= ALWAYS_FILL:
             raise BuildErr(BuildErr.MAX_TOO_LOW, self.max_water_level)
-        if self.wlvl_hook is not None:
-            raise _not_yet("set_wlvl_hook", 11)
-        if self.plot_path is not None:
-            raise _not_yet("set_plot_folder", 11)
-        if self.progress:
-            raise _not_yet("enable_progress", 11)
-        if self.debug:
-            raise _not_yet("enable_debug", 11)
-        if self.sweep_fn is not None:
-            raise _not_yet("set_sweep_impl", 11)
         if self.tie_break != "min":
             raise _not_yet("set_tie_break('random')", 11)
         if self.checkpoint_dir is not None:
@@ -159,13 +154,19 @@ class TransformBuilder:
                 "backend 'relax_pallas' is the packed engine, which the port "
                 "serves as backend 'auto'"
             )
-        if self.backend not in _BACKENDS:
-            raise _not_yet(f"backend {self.backend!r}", _BACKEND_ITEMS[self.backend])
+        if self.backend == "native":
+            raise _not_yet("backend 'native'", 8)
 
     def _kwargs(self):
         return dict(
             max_water_level=self.max_water_level,
             edge_correction=self.edge_correction,
+            wlvl_hook=self.wlvl_hook,
+            plot_path=self.plot_path,
+            plot_colour_map=self.plot_colour_map,
+            progress=self.progress,
+            debug=self.debug,
+            sweep_fn=self.sweep_fn,
             backend=self.backend,
             device=self.device,
         )

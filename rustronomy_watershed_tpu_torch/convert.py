@@ -46,11 +46,18 @@ def planes_to_jax_layout(v, key, lab, tile: int, steps: int, *, unclaimed: int =
 
 
 def builder_from_jax(tb, device="cuda"):
-    """Port TransformBuilder with the JAX builder's water level and edge
-    correction; raises NotImplementedError for options the port does not
-    serve yet (the port builder's own validation names the ROADMAP item)."""
+    """Port TransformBuilder with the JAX builder's options; raises
+    NotImplementedError for options the port does not serve yet (the port
+    builder's own validation names the ROADMAP item) and for a sweep
+    function, which the JAX builder holds as a JAX function."""
     from .builder import TransformBuilder
 
+    if tb.sweep_fn is not None:
+        raise NotImplementedError(
+            "the JAX builder's set_sweep_impl holds a JAX sweep function, which "
+            "cannot run on torch tensors; give the port builder a torch sweep "
+            "(set_sweep_impl, e.g. ops.flood_block.make_sweep_fn())"
+        )
     out = TransformBuilder().set_max_water_lvl(tb.max_water_level).set_device(device)
     if tb.edge_correction:
         out.enable_edge_correction()
@@ -58,7 +65,7 @@ def builder_from_jax(tb, device="cuda"):
     # port does not serve.
     for name in (
         "wlvl_hook", "plot_path", "plot_colour_map", "progress", "debug",
-        "sweep_fn", "backend", "mesh", "checkpoint_dir", "checkpoint_every",
+        "backend", "mesh", "checkpoint_dir", "checkpoint_every",
         "tie_break", "tie_break_seed",
     ):
         setattr(out, name, getattr(tb, name))

@@ -1,7 +1,7 @@
-"""Transform drivers: segmenting (served) and merging (stub)."""
+"""Transform drivers: segmenting and merging."""
 
-from .base import WatershedUtils
+from .base import HookCtx, WatershedUtils
 from .merging import MergingWatershed
 from .segmenting import SegmentingWatershed
 
-__all__ = ["WatershedUtils", "MergingWatershed", "SegmentingWatershed"]
+__all__ = ["HookCtx", "WatershedUtils", "MergingWatershed", "SegmentingWatershed"]

@@ -2,26 +2,60 @@
 
 Counterpart of ``rustronomy_watershed_tpu.models.base``: the reference's
 ``Watershed`` trait surface (reference src/lib.rs:1206-1238) and the
-``WatershedUtils`` mixin (src/lib.rs:1069-1201).  The port serves
-``transform`` and ``transform_batch`` of both variants on the packed engine
-(backend ``'auto'``) or the exact engine (``'relax'``); every other entry
-raises NotImplementedError naming the ROADMAP item that brings it.
+``WatershedUtils`` mixin (src/lib.rs:1069-1201).
+
+Four engines (``ops/level_driver.py``), chosen by the builder's backend:
+``'auto'`` the packed relaxation engine (the CUDA kernels on the card),
+``'relax'`` the exact relaxation engine, ``'pallas'`` the level sweep on the
+flood kernel and ``'jnp'`` the level sweep on plain ``flood_sweep``.  Per
+level, the relaxation engines serve ``transform_to_list``,
+``transform_history`` and pure observers (hook, plots) from their compact
+planes (ops/merge_curve.py); progress, debug and a custom sweep step the
+levels from the host, as the reference does.  The native engine, the random
+tie-break, checkpointing and the mesh are refused by the builder.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import time
 import warnings
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from .. import _ext
 from ..constants import ALWAYS_FILL, NEVER_FILL, NORMAL_MAX
-from ..ops.level_driver import run_levels_impl
+from ..ops.flood import flood_candidates, paint
+from ..ops.level_driver import level_step, level_step_counted, run_levels_impl
+from ..ops.merge import merge_touching
+from ..ops.merge_curve import relax_history, relax_merging_sizes
 from ..ops.preprocess import pre_process
 from ..ops.seeds import local_extrema_mask, paint_seeds, seed_array
+from ..utils.perf import PerfReport
+from ..utils.progress import ProgressBar
 
-_BACKENDS = {"auto": "packed", "relax": "relax"}
+# Public backend name -> the port's engine (ops/level_driver.py).
+_BACKENDS = {"auto": "packed", "relax": "relax", "pallas": "flood", "jnp": "sweep"}
+
+
+@dataclasses.dataclass(frozen=True)
+class HookCtx:
+    """Per-water-level context handed to hooks (src/lib.rs:843-862).
+
+    ``colours`` is the int32 label image after this level's fixed point (and
+    merge phase, for merging); ``image`` the u8 input; ``seeds`` the
+    ``(colour, (y, x))`` list with the original colours.  Under edge
+    correction the views keep the padded shape and the seeds are not
+    shifted, as in the reference (SURVEY.md Q7)."""
+
+    water_level: int
+    max_water_level: int
+    image: np.ndarray
+    colours: np.ndarray
+    seeds: tuple[tuple[int, tuple[int, int]], ...]
 
 
 def _warn_saturation():
@@ -31,7 +65,7 @@ def _warn_saturation():
         "(ops/relax.py); re-running on the exact relaxation engine "
         "(ops/priority.py, 32-bit ring index)",
         RuntimeWarning,
-        stacklevel=4,  # the caller of transform / transform_batch
+        stacklevel=4,  # the caller of the public method
     )
 
 
@@ -51,6 +85,34 @@ def _not_yet(what: str, item: int):
         f"{what} is not ported to the PyTorch package yet "
         f"(ROADMAP queue 1 item {item})"
     )
+
+
+def _expand_rows(sizes, counts_length: int, max_water_level: int, copy: bool = False):
+    """``[(level, counts row)]`` with rows of ``counts_length`` int64
+    (the reference's ``n_pixels + 1`` by default, src/lib.rs:630).
+
+    One ``(levels, counts_length)`` block: results under 64 MB come back as
+    independent per-row copies, larger ones as views of the block (copying
+    would double a reference-length result, 2 GB at 1024²) unless
+    ``copy=True``."""
+    levels = max_water_level + 1
+    sizes = np.asarray(sizes)
+    if sizes.shape == (levels, counts_length) and sizes.dtype == np.int64:
+        # Already at result width (a fresh table): no block copy needed.
+        if copy:
+            return [(lvl, sizes[lvl].copy()) for lvl in range(levels)]
+        return list(enumerate(sizes))
+    out = np.zeros((levels, counts_length), dtype=np.int64)
+    k = min(sizes.shape[1], counts_length)
+    out[:, :k] = sizes[:levels, :k]
+    if copy or out.nbytes < 64 * 1024 * 1024:
+        return [(lvl, out[lvl].copy()) for lvl in range(levels)]
+    return list(enumerate(out))
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 class WatershedUtils:
@@ -85,15 +147,48 @@ class _WatershedBase(WatershedUtils):
         self,
         max_water_level: int = NORMAL_MAX,
         edge_correction: bool = False,
+        wlvl_hook: Optional[Callable[[HookCtx], Any]] = None,
+        plot_path=None,
+        plot_colour_map=None,
+        progress: bool = False,
+        debug: bool = False,
+        sweep_fn=None,
         backend: str = "auto",
         device="cuda",
     ):
         if backend not in _BACKENDS:
-            raise ValueError(f"backend {backend!r} not served (auto or relax)")
+            raise ValueError(f"backend {backend!r} not served ({', '.join(_BACKENDS)})")
         self.max_water_level = int(max_water_level)
         self.edge_correction = bool(edge_correction)
+        self.wlvl_hook = wlvl_hook
+        self.plot_path = plot_path
+        self.plot_colour_map = plot_colour_map
+        self.progress = progress
+        self.debug = debug
+        self.sweep_fn = sweep_fn
         self.backend = backend
         self.device = device
+
+    def _resolved_backend(self) -> str:
+        """The engine behind the backend.  ``'auto'`` is the packed engine
+        for every collect: merging curves and histories rebuild on the host
+        from its compact planes (ops/merge_curve.py), so no per-level
+        statistic needs the level sweep."""
+        return _BACKENDS[self.backend]
+
+    def _clone_with_hook(self, hook):
+        return type(self)(
+            max_water_level=self.max_water_level,
+            edge_correction=self.edge_correction,
+            wlvl_hook=hook,
+            plot_path=self.plot_path,
+            plot_colour_map=self.plot_colour_map,
+            progress=self.progress,
+            debug=self.debug,
+            sweep_fn=self.sweep_fn,
+            backend=self.backend,
+            device=self.device,
+        )
 
     def _prepare(self, input_img, seeds):
         """Edge correction + painted seeds (src/lib.rs:1329-1369), on the
@@ -108,13 +203,24 @@ class _WatershedBase(WatershedUtils):
         dev = _ext.resolve_device(self.device)
         return torch.from_numpy(img).to(dev), torch.from_numpy(labels0).to(dev)
 
+    def _needs_host_loop(self) -> bool:
+        return (
+            self.wlvl_hook is not None
+            or self.plot_path is not None
+            or self.progress
+            or self.debug
+        )
+
     def _run(self, img, labels0, **kw):
         """run_levels_impl on the configured engine; a d-field saturation
         of the packed engine (a >= 2^23-pixel equal-level plateau) warns
         and re-runs on the exact engine."""
-        kw.update(max_water_level=self.max_water_level, merging=self._merging, device=img.device)
+        kw.update(
+            max_water_level=self.max_water_level, merging=self._merging,
+            sweep_fn=self.sweep_fn, device=img.device,
+        )
         labels, starved = run_levels_impl(
-            img, labels0, backend=_BACKENDS[self.backend], with_flags=True, **kw
+            img, labels0, backend=self._resolved_backend(), with_flags=True, **kw
         )
         if starved:
             _warn_saturation()
@@ -123,39 +229,137 @@ class _WatershedBase(WatershedUtils):
 
     def transform(self, input_img, seeds, device_output: bool = False):
         """Final label image (host numpy int32, or the device tensor with
-        ``device_output=True``)."""
+        ``device_output=True``).  With a hook, plots, progress or debug the
+        levels are observed on the way and the last level's view is the
+        result."""
+        if self._needs_host_loop():
+            clone = self._clone_with_hook(
+                lambda ctx: ctx.colours.copy() if ctx.water_level == ctx.max_water_level else None
+            )
+            out = clone._host_stepped(input_img, seeds)[-1]
+            return torch.from_numpy(out).to(_ext.resolve_device(self.device)) if device_output else out
         img, labels0 = self._prepare(input_img, seeds)
         labels = self._run(img, labels0, n_labels=len(seeds))
         return labels if device_output else labels.cpu().numpy()
 
-    def transform_with_hook(self, input_img, seeds):
-        raise _not_yet("transform_with_hook", 11)
+    def transform_with_hook(self, input_img, seeds) -> list:
+        """Run the transform, calling the hook at each water level; returns
+        the hook's results (empty without a hook), like the reference
+        (src/lib.rs:1509-1521)."""
+        if self.wlvl_hook is None and not self._needs_host_loop():
+            img, labels0 = self._prepare(input_img, seeds)
+            self._run(img, labels0, n_labels=len(seeds))
+            return []
+        return self._host_stepped(input_img, seeds)
 
-    def transform_to_list(self, input_img, seeds, *args, **kwargs):
-        raise _not_yet("transform_to_list", 8)
+    def transform_to_list(
+        self, input_img, seeds, counts_length: Optional[int] = None, copy: bool = False
+    ) -> list[tuple[int, np.ndarray]]:
+        """Per-level lake sizes: ``[(water_level, counts)]`` with
+        ``counts[label]`` the pixel count of a label and ``counts[0]`` the
+        uncoloured count, int64.  ``counts_length=None`` gives the
+        reference's ``n_pixels + 1`` rows (src/lib.rs:630, SURVEY.md Q10);
+        pass e.g. ``len(seeds) + 1`` for compact rows.  Rows of a result
+        over 64 MB are views of one block unless ``copy=True``."""
+        if self._needs_host_loop():
+            # The reference's transform_to_list is clone_with_hook(
+            # find_lake_sizes) (src/lib.rs:1551-1561).
+            length = counts_length
 
-    def transform_history(self, input_img, seeds):
-        raise _not_yet("transform_history", 8)
+            def find_lake_sizes(ctx):
+                n = length if length is not None else ctx.colours.size + 1
+                counts = np.bincount(ctx.colours.reshape(-1).astype(np.int64), minlength=n)[:n]
+                row = np.zeros(n, dtype=np.int64)
+                row[: len(counts)] = counts
+                return (ctx.water_level, row)
+
+            return self._clone_with_hook(find_lake_sizes)._host_stepped(input_img, seeds)
+        img, labels0 = self._prepare(input_img, seeds)
+        if counts_length is None:
+            counts_length = img.numel() + 1
+        backend = self._resolved_backend()
+        kw = dict(n_labels=len(seeds), max_water_level=self.max_water_level, merging=self._merging)
+        if backend in ("packed", "relax"):
+            # One relaxation pass, the compact planes to the host, and the
+            # host tail (ops/merge_curve.py).
+            kw.update(with_final=False, out_width=counts_length, device=img.device)
+            _, sizes, starved = relax_merging_sizes(img, labels0, backend=backend, **kw)
+            if starved:
+                _warn_saturation()
+                _, sizes, _ = relax_merging_sizes(img, labels0, backend="relax", **kw)
+        else:
+            _, sizes = run_levels_impl(
+                img, labels0, collect="sizes", backend=backend, sweep_fn=self.sweep_fn,
+                device=img.device, **kw,
+            )
+            sizes = sizes.cpu().numpy()
+        return _expand_rows(sizes, counts_length, self.max_water_level, copy)
+
+    def _history_stack_fits(self, shape) -> bool:
+        """Whether the level sweep's ``(levels, h, w)`` int32 snapshot stack
+        fits a quarter of the card's memory (on the CPU it is host memory
+        either way)."""
+        dev = _ext.resolve_device(self.device)
+        if dev.type != "cuda":
+            return True
+        stack = 4 * (self.max_water_level + 1) * int(np.prod(shape))
+        return stack <= torch.cuda.get_device_properties(dev).total_memory // 4
+
+    def transform_history(self, input_img, seeds) -> list[tuple[int, np.ndarray]]:
+        """Per-level int32 label snapshots ``[(water_level, labels)]``
+        (src/lib.rs:1233-1237); memory-heavy: ``levels`` planes in host
+        memory, as in the reference (src/lib.rs:1229-1232).  The level sweep
+        stacks them on the card first, unless the stack would not fit; then
+        the host loop collects one plane per level."""
+        backend = self._resolved_backend()
+        compact = backend in ("packed", "relax")
+        route_host = self._needs_host_loop() or not (
+            compact or self._history_stack_fits(np.shape(input_img))
+        )
+        if route_host:
+            return self._clone_with_hook(
+                lambda ctx: (ctx.water_level, ctx.colours.copy())
+            )._host_stepped(input_img, seeds)
+        img, labels0 = self._prepare(input_img, seeds)
+        kw = dict(n_labels=len(seeds), max_water_level=self.max_water_level, merging=self._merging)
+        if compact:
+            snaps, starved = relax_history(img, labels0, backend=backend, device=img.device, **kw)
+            if starved:
+                _warn_saturation()
+                snaps, _ = relax_history(img, labels0, backend="relax", device=img.device, **kw)
+            return snaps
+        _, hist = run_levels_impl(
+            img, labels0, collect="history", backend=backend, sweep_fn=self.sweep_fn,
+            device=img.device, **kw,
+        )
+        hist = hist.cpu().numpy()
+        return [(lvl, hist[lvl]) for lvl in range(self.max_water_level + 1)]
 
     def transform_batch(self, input_imgs, seeds_list, device_output: bool = False):
         """Transform a ``(b, h, w)`` stack of same-shaped cutouts (BASELINE
         config 5: 64 x 1024² cutouts), one seed list per image; returns
-        ``(b, h, w)`` labels like ``transform``.
+        ``(b, h, w)`` labels like ``transform``.  Hooks, plots, progress and
+        debug do not apply.
 
-        The images run as ONE vertically stacked plane with their borders
-        forced to NEVER_FILL: border cells are never claimed, so claims and
-        labels cannot cross images and one relax pass equals b transforms.
-        Merging adds one NEVER_FILL separator row per image, so the
-        component-min scans stay per image too, and at full depth on the
-        packed engine, when no seed sits on an image border (checked here on
-        the host), declares the stack to the driver for the per-image
-        broadcast shortcut (models/base.py:491-582 of the JAX package).
+        On the relaxation engines the images run as ONE vertically stacked
+        plane with their borders forced to NEVER_FILL: border cells are never
+        claimed, so claims and labels cannot cross images and one relax pass
+        equals b transforms.  Merging adds one NEVER_FILL separator row per
+        image, so the component-min scans stay per image too, and at full
+        depth on the packed engine, when no seed sits on an image border
+        (checked here on the host), declares the stack to the driver for the
+        per-image broadcast shortcut (models/base.py:491-582 of the JAX
+        package).  The level sweeps run image by image.
         """
         imgs = np.asarray(input_imgs, dtype=np.uint8)
         if imgs.ndim != 3:
             raise ValueError("transform_batch expects (B, H, W)")
         if len(seeds_list) != imgs.shape[0]:
             raise ValueError("one seed list per image required")
+        backend = self._resolved_backend()
+        if backend in ("flood", "sweep"):
+            out = torch.stack([self._run(*self._prepare(a, s), n_labels=len(s)) for a, s in zip(imgs, seeds_list)])
+            return out if device_output else out.cpu().numpy()
         if self.edge_correction:
             imgs = np.pad(imgs, ((0, 0), (1, 1), (1, 1)), constant_values=ALWAYS_FILL)
         b, h, w = imgs.shape
@@ -173,10 +377,143 @@ class _WatershedBase(WatershedUtils):
                 ((c[:, 0] == 0) | (c[:, 0] == h - 1) | (c[:, 1] == 0) | (c[:, 1] == w - 1)).any()
                 for c in coords
             )
-            if _BACKENDS[self.backend] == "packed" and self.max_water_level >= 254 and not border_seed:
+            if backend == "packed" and self.max_water_level >= 254 and not border_seed:
                 kw.update(batch=(b, hs, h), batch_mins=[_surviving_min(c, w) for c in coords])
         dev = _ext.resolve_device(self.device)
         img = torch.from_numpy(np.ascontiguousarray(imgs.reshape(b * hs, w))).to(dev)
         lab = torch.from_numpy(np.ascontiguousarray(labels0.reshape(b * hs, w))).to(dev)
         out = self._run(img, lab, **kw).reshape(b, hs, w)[:, :h]
         return out if device_output else out.cpu().numpy()
+
+    # -- per-level observers: replay or the host-stepped loop ------------------
+
+    def _fast_observer_ok(self) -> bool:
+        """Pure observers (hook, plots) replay snapshots rebuilt from the
+        relaxation engines' compact planes: one device pass instead of 255
+        host-stepped levels.  Progress (a tick per flood sweep), debug
+        (split-phase timers) and a custom sweep interact with the stepping
+        itself and run the real loop."""
+        return (
+            not self.debug
+            and not self.progress
+            and self.sweep_fn is None
+            and self._resolved_backend() in ("packed", "relax")
+        )
+
+    def _seed_colours(self, seeds):
+        return tuple((col, (int(y), int(x))) for col, (y, x) in enumerate(seeds, start=1))
+
+    def _replayed_observers(self, input_img, seeds) -> list:
+        """Hook and plot replay over compact-plane snapshots, one live at a
+        time: the same HookCtx views and PNG files as the host-stepped
+        loop."""
+        img, labels0 = self._prepare(input_img, seeds)
+        backend = self._resolved_backend()
+        kw = dict(
+            n_labels=len(seeds), max_water_level=self.max_water_level,
+            merging=self._merging, as_iter=True, device=img.device,
+        )
+        snaps, starved = relax_history(img, labels0, backend=backend, **kw)
+        if starved:
+            _warn_saturation()
+            snaps, _ = relax_history(img, labels0, backend="relax", **kw)
+        seed_colours = self._seed_colours(seeds)
+        img_np = img.cpu().numpy()
+        results = []
+        for lvl, labels_np in snaps:
+            if self.plot_path is not None:
+                self._plot_level(labels_np, lvl)
+            if self.wlvl_hook is not None:
+                results.append(self.wlvl_hook(HookCtx(
+                    water_level=lvl, max_water_level=self.max_water_level,
+                    image=img_np, colours=labels_np, seeds=seed_colours,
+                )))
+        return results
+
+    def _host_stepped(self, input_img, seeds) -> list:
+        """The reference's per-level loop stepped from the host
+        (src/lib.rs:1379-1521): plain ``level_step`` per level (with the
+        caller's sweep), ``level_step_counted`` for progress ticks, or the
+        split candidate / paint / merge phases with timers for debug."""
+        if self._fast_observer_ok():
+            return self._replayed_observers(input_img, seeds)
+        img, labels = self._prepare(input_img, seeds)
+        dev = img.device
+        n_labels = len(seeds)
+        seed_colours = self._seed_colours(seeds)
+        img_np = img.cpu().numpy()
+        step = level_step_counted if self.progress else level_step
+        bar = ProgressBar(self.max_water_level) if self.progress else None
+        if self.debug:
+            # The reference prints the initial lake count (src/lib.rs:1371-1372).
+            print(f"starting with {len(seeds) + 1} lakes")
+
+        results = []
+        for lvl in range(self.max_water_level + 1):
+            perf = PerfReport() if self.debug else None
+            t_level = time.perf_counter()
+            if self.debug:
+                # Split phases with timers and a progress tick per colouring
+                # iteration, like the reference's 'debug' feature
+                # (src/lib.rs:1379-1438): one host read per sweep.
+                painted_any = False
+                while True:
+                    if bar is not None:
+                        bar.tick()
+                    perf.loops += 1
+                    t0 = time.perf_counter()
+                    cand, nmin, any_p = flood_candidates(img, labels, lvl)
+                    any_p = bool(any_p)
+                    perf.big_iter_ms.append(int((time.perf_counter() - t0) * 1e3))
+                    if not any_p:
+                        break
+                    t0 = time.perf_counter()
+                    labels = paint(labels, cand, nmin)
+                    _sync(dev)
+                    perf.colouring_mus.append(int((time.perf_counter() - t0) * 1e6))
+                    painted_any = True
+                if self._merging and (painted_any or lvl == 0):
+                    t0 = time.perf_counter()
+                    labels = merge_touching(labels, n_labels)
+                    _sync(dev)
+                    perf.merge_ms = int((time.perf_counter() - t0) * 1e3)
+            elif self.progress:
+                # A tick per colouring iteration (src/lib.rs:1395-1398).
+                labels, loops = step(
+                    img, labels, lvl, merging=self._merging, n_labels=n_labels, sweep_fn=self.sweep_fn
+                )
+                for _ in range(loops):
+                    bar.tick()
+            else:
+                labels = step(img, labels, lvl, merging=self._merging, n_labels=n_labels, sweep_fn=self.sweep_fn)
+
+            labels_np = labels.cpu().numpy()
+            if self.plot_path is not None:
+                self._plot_level(labels_np, lvl)
+            if bar is not None:
+                bar.inc()
+            if self.wlvl_hook is not None:
+                ctx = HookCtx(
+                    water_level=lvl, max_water_level=self.max_water_level,
+                    image=img_np, colours=labels_np, seeds=seed_colours,
+                )
+                t0 = time.perf_counter()
+                results.append(self.wlvl_hook(ctx))
+                if perf is not None:
+                    # The reference declares lake_count_ms but never writes
+                    # it (src/lib.rs:649, :682); the hook time fills it here.
+                    perf.lake_count_ms = int((time.perf_counter() - t0) * 1e3)
+            if perf is not None:
+                perf.total_ms = int((time.perf_counter() - t_level) * 1e3)
+                print(perf)
+        if bar is not None:
+            bar.finish()
+        return results
+
+    def _plot_level(self, labels_np: np.ndarray, lvl: int):
+        from ..utils import plotting
+
+        # Plots are cropped to the unpadded image (src/lib.rs:1476-1481).
+        view = labels_np[1:-1, 1:-1] if self.edge_correction else labels_np
+        cmap = self.plot_colour_map or plotting.viridis
+        plotting.plot_slice(view, os.path.join(str(self.plot_path), f"ws_lvl{lvl}.png"), cmap)

@@ -33,14 +33,14 @@ def watershed_e2e(
 ):
     """Seeds from the image, then the full transform on the packed engine.
     Returns what run_levels_impl returns.  The seed count is known only on
-    the device, so merging bounds the labels by ``max_seed_count``
+    the device, so the labels are bounded by ``max_seed_count``
     (pipeline.py:54-55)."""
     return run_levels_impl(
         img,
         None,
         max_water_level=max_water_level,
         merging=merging,
-        n_labels=max_seed_count(tuple(img.shape)) if merging else None,
+        n_labels=max_seed_count(tuple(img.shape)),
         collect=collect,
         backend="packed",
         steps=steps,

@@ -2,11 +2,20 @@
 (reference src/lib.rs:144-154)."""
 
 from .builder import TransformBuilder
-from .models import MergingWatershed, SegmentingWatershed, WatershedUtils
+from .models import HookCtx, MergingWatershed, SegmentingWatershed, WatershedUtils
+
+
+class color_maps:
+    """Colour maps for plotting (prelude::color_maps)."""
+
+    from .utils.plotting import grey_scale, inferno, magma, plasma, viridis
+
 
 __all__ = [
+    "HookCtx",
     "MergingWatershed",
     "SegmentingWatershed",
     "TransformBuilder",
     "WatershedUtils",
+    "color_maps",
 ]

@@ -70,5 +70,14 @@ def test_builder_from_jax():
     )
     with pytest.raises(NotImplementedError, match="item 13"):
         builder_from_jax(JaxBuilder.default().set_mesh(object()), device="cpu")
+    # Progress is served: the same labels and progress bar as the JAX builder.
+    jb = JaxBuilder.default().set_max_water_lvl(40).enable_progress()
+    tb = builder_from_jax(jb, device="cpu")
+    assert tb.progress and tb.max_water_level == 40
+    np.testing.assert_array_equal(
+        tb.build_merging().transform(img, seeds), np.asarray(jb.build_merging().transform(img, seeds))
+    )
+    with pytest.raises(NotImplementedError, match="JAX sweep function"):
+        builder_from_jax(JaxBuilder.default().set_sweep_impl(lambda *a: None), device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
-        builder_from_jax(JaxBuilder.default().enable_progress(), device="cpu")
+        builder_from_jax(JaxBuilder.default().set_tie_break("random", 1), device="cpu")

@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from rustronomy_watershed_tpu.ops.flood import flood_sweep as j_flood_sweep
 from rustronomy_watershed_tpu.ops.pipeline import watershed_e2e_impl as j_e2e
 from rustronomy_watershed_tpu.prelude import TransformBuilder as JaxBuilder
 from rustronomy_watershed_tpu_torch import BuildErr
+from rustronomy_watershed_tpu_torch.ops.flood_block import make_sweep_fn
 from rustronomy_watershed_tpu_torch.ops.level_driver import run_levels_impl
 from rustronomy_watershed_tpu_torch.ops.pipeline import max_seed_count, watershed_e2e
 from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
@@ -96,27 +98,55 @@ def test_build_err_matches_jax(level, kind):
     assert got.value.kind == kind and str(got.value) == str(want.value)
 
 
+def _sweep_for(builder):
+    """A 2-sweep flood function for the builder's own package."""
+    if isinstance(builder, TransformBuilder):
+        return make_sweep_fn(2)
+    return lambda img, lab, lvl: j_flood_sweep(j_flood_sweep(jnp.asarray(img, jnp.int32), lab, lvl), jnp.asarray(img, jnp.int32), lvl)
+
+
+def _plots(builder, folder):
+    out = folder / type(builder).__module__.split(".")[0]
+    out.mkdir(exist_ok=True)
+    return builder.set_plot_folder(str(out))
+
+
 @pytest.mark.parametrize(
     "configure,item",
     [
-        (lambda b: b.set_wlvl_hook(lambda ctx: None), 11),
-        (lambda b: b.set_plot_folder("plots"), 11),
-        (lambda b: b.enable_progress(), 11),
-        (lambda b: b.enable_debug(), 11),
-        (lambda b: b.set_sweep_impl(lambda *a: None), 11),
-        (lambda b: b.set_tie_break("random", 3), 11),
-        (lambda b: b.set_checkpoint("ckpt"), 12),
-        (lambda b: b.set_mesh(object()), 13),
-        (lambda b: b.set_backend("jnp"), 11),
-        (lambda b: b.set_backend("native"), 8),
+        (lambda b, d: b.set_wlvl_hook(lambda ctx: None), 11),
+        (lambda b, d: _plots(b, d), 11),
+        (lambda b, d: b.enable_progress(), 11),
+        (lambda b, d: b.enable_debug(), 11),
+        (lambda b, d: b.set_sweep_impl(_sweep_for(b)), 11),
+        (lambda b, d: b.set_tie_break("random", 3), 11),
+        (lambda b, d: b.set_checkpoint("ckpt"), 12),
+        (lambda b, d: b.set_mesh(object()), 13),
+        (lambda b, d: b.set_backend("jnp"), 11),
+        (lambda b, d: b.set_backend("native"), 8),
     ],
 )
-def test_unserved_options_raise_at_build(configure, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-        configure(_cpu_builder()).build_segmenting()
+def test_unserved_options_raise_at_build(configure, item, tmp_path):
+    """The random tie-break, checkpointing, the mesh and the native backend
+    raise at build time naming their ROADMAP item; every other option of
+    this list is served and gives the JAX package's labels."""
+    tb = configure(_cpu_builder().set_max_water_lvl(60), tmp_path)
+    if item != 11 or tb.tie_break != "min":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
+            tb.build_segmenting()
+        return
+    jb = configure(JaxBuilder.default().set_max_water_lvl(60), tmp_path)
+    img = np.random.default_rng(8).integers(0, 70, size=(18, 21)).astype(np.uint8)
+    seeds = _cpu_builder().build_segmenting().find_local_minima(img) + [(0, 3)]
+    for build in ("build_segmenting", "build_merging"):
+        np.testing.assert_array_equal(
+            getattr(tb, build)().transform(img, seeds), np.asarray(getattr(jb, build)().transform(img, seeds))
+        )
 
 
 def test_unserved_entries_raise():
+    """The per-level entries and the collects, unserved before, now give the
+    JAX package's results; 'relax_pallas' and unknown backends still raise."""
     img = np.zeros((8, 8), np.uint8)
     with pytest.raises(NotImplementedError, match="relax_pallas"):
         _cpu_builder().set_backend("relax_pallas").build_segmenting()
@@ -125,17 +155,29 @@ def test_unserved_entries_raise():
     wm = _cpu_builder().build_merging()
     assert wm.find_local_minima(img) == []
     ws = _cpu_builder().build_segmenting()
-    for call, item in (
-        (lambda: ws.transform_to_list(img, []), 8),
-        (lambda: ws.transform_history(img, []), 8),
-        (lambda: wm.transform_to_list(img, []), 8),
-        (lambda: ws.transform_with_hook(img, []), 11),
-        (lambda: wm.transform_with_hook(img, []), 11),
-        (lambda: run_levels_impl(img, None, max_water_level=254, collect="sizes", device="cpu"), 8),
-        (lambda: run_levels_impl(img, None, max_water_level=254, merging=True, n_labels=1, collect="sizes", device="cpu"), 8),
+    jws, jwm = JaxBuilder.default().build_segmenting(), JaxBuilder.default().build_merging()
+    img = np.random.default_rng(3).integers(0, 254, size=(12, 14)).astype(np.uint8)
+    seeds = ws.find_local_minima(img)
+    for got, want in (
+        (ws.transform_to_list(img, seeds), jws.transform_to_list(img, seeds)),
+        (ws.transform_history(img, seeds), jws.transform_history(img, seeds)),
+        (wm.transform_to_list(img, seeds), jwm.transform_to_list(img, seeds)),
+        (ws.transform_with_hook(img, seeds), jws.transform_with_hook(img, seeds)),
+        (wm.transform_with_hook(img, seeds), jwm.transform_with_hook(img, seeds)),
     ):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            call()
+        assert len(got) == len(want)
+        for (lvl, a), (jlvl, b) in zip(got, want):
+            assert lvl == jlvl
+            np.testing.assert_array_equal(a, b)
+    from rustronomy_watershed_tpu.ops import run_levels as j_run_levels
+    from rustronomy_watershed_tpu.ops.seeds import local_extrema_mask, seed_labels_from_mask
+
+    n = max_seed_count(img.shape)
+    lab0 = seed_labels_from_mask(local_extrema_mask(jnp.asarray(img)))
+    for merging in (False, True):
+        _, want = j_run_levels(jnp.asarray(img), lab0, n_labels=n, max_water_level=254, merging=merging, collect="sizes")
+        _, got = run_levels_impl(img, None, max_water_level=254, merging=merging, n_labels=n, collect="sizes", device="cpu")
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_max_seed_count_bounds_the_seeds():

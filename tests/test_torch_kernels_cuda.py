@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from rustronomy_watershed_tpu_torch import _ext
-from rustronomy_watershed_tpu_torch.ops import pack, priority, relax
+from rustronomy_watershed_tpu_torch.ops import flood_block, pack, priority, relax
 from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
 from rustronomy_watershed_tpu_torch.ops.pipeline import watershed_e2e
 from rustronomy_watershed_tpu_torch.ops.seeds import local_extrema_mask, seed_labels_from_mask
@@ -155,3 +155,44 @@ def test_failed_coarse_gate_raises_on_cuda(cuda):
         sm.component_min_coarse(lab, 1)
     with pytest.raises(NotImplementedError, match="item 10"):
         sm.component_min_coarse(torch.ones((8, 8), dtype=torch.int32, device=cuda), 1 << 24)
+
+
+def _flood_state(shape, hi, lvl, seed):
+    """A flood image and a label plane partly flooded from its seeds."""
+    img = torch.from_numpy(_field(shape, hi, seed=seed)).to("cuda")
+    lab = seed_labels_from_mask(local_extrema_mask(img))
+    img = flood_block.flood_image(img)
+    for _ in range(seed % 3):
+        lab = flood_block.flood_block_plain(img, lab, lvl, 5)[0]
+    return img, lab
+
+
+@pytest.mark.parametrize("steps", [1, 8, 13])
+@pytest.mark.parametrize("shape,hi", [((5, 7), 256), ((130, 257), 40), ((64, 64), 4), ((1, 9), 256)])
+def test_flood_kernel_matches_twin(cuda, shape, hi, steps):
+    for lvl in (0, hi // 2, 254):
+        img, lab = _flood_state(shape, hi, lvl, seed=steps + lvl)
+        _ext.reset_launches()
+        got = flood_block.flood_block(img, lab, lvl, steps)
+        assert _ext.launches["flood"] == 1 and _ext.launches["flood_plain"] == 0
+        _assert_same(got, flood_block.flood_block_plain(img, lab, lvl, steps))
+
+
+def test_flood_fixed_point_and_level_sweep_on_card(cuda):
+    from rustronomy_watershed_tpu_torch.ops.level_driver import run_levels_impl
+
+    img = torch.from_numpy(_field((200, 300), 254, seed=3)).to(cuda)
+    lab0 = seed_labels_from_mask(local_extrema_mask(img))
+    n = int(lab0.max())
+    for merging in (False, True):
+        want = run_levels_impl(img, lab0, n_labels=n, max_water_level=254, merging=merging, backend="relax", device=cuda)
+        _ext.reset_launches()
+        got = run_levels_impl(img, lab0, n_labels=n, max_water_level=254, merging=merging, backend="flood", device=cuda)
+        assert _ext.launches["flood"] > 0 and _ext.launches["flood_plain"] == 0
+        assert torch.equal(got, want)
+
+
+def test_flood_kernel_refuses_aliased_output(cuda):
+    img, lab = _flood_state((16, 16), 9, 3, seed=0)
+    with pytest.raises(ValueError, match="alias"):
+        flood_block.flood_block(img, lab, 3, 4, out=lab)

@@ -32,6 +32,8 @@ CUTS = [
     ('(1023, 500)', '(511, 500)'),
     ('(301, 1023)', '(301, 511)'),
     ('(16, 1024, 1024)', '(4, 64, 64)'),
+    ('pimg = zc["img"]', 'pimg = zc["img"][:96, :112]'),
+    ('zc["merging/sizes"]', 'np.stack([r for _, r in results[("auto", "list")]])'),
     ('torch.device("cuda")', 'torch.device("cpu")'),
     ('set_device("cuda")', 'set_device("cpu")'),
 ]
@@ -39,7 +41,7 @@ CUTS = [
 
 def _fake_kernels():
     from rustronomy_watershed_tpu_torch import _ext
-    from rustronomy_watershed_tpu_torch.ops import pack, relax
+    from rustronomy_watershed_tpu_torch.ops import flood_block, pack, relax
     from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
 
     def as_kernel(plain, key):
@@ -63,6 +65,8 @@ def _fake_kernels():
     sm.coarse_round_kernel = as_kernel(sm.coarse_round_plain, "coarse_round")
     sm.coarse_broadcast_kernel = as_kernel(sm.coarse_broadcast_plain, "coarse_broadcast")
     sm._dispatch = lambda kernel, plain, lead: kernel
+    flood_block.flood_block_kernel = as_kernel(flood_block.flood_block_plain, "flood")
+    flood_block.flood_block = lambda *a, **k: flood_block.flood_block_kernel(*a, **k)
     _ext.lib = lambda: None
     _ext.library_path = lambda: "(no library: rehearsal)"
 
