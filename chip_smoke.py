@@ -11,7 +11,10 @@ on the 4096^2 u8 fields, ``transform_batch`` on 16 x 1024^2 cutouts) for the
 segmenting and the merging variant, then the level-sweep engine
 (``set_backend("pallas")``, the flood kernel) at 4096^2 and the per-level API
 (``transform_to_list``, ``transform_history``, hooks, progress, plots) at
-1024^2, checks the labels against the packed engine, and times the card.
+1024^2, checks the labels against the packed engine, then the fine scan tail
+and the legacy coarse rounds against their twins, and 16384^2 transforms
+(the fine tail, relax at width 16384) against the exact engine, and times
+the card.
 One line per phase; the line before the last is the kernel table as JSON,
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the run exits non-zero; without CUDA it exits non-zero at once.  Imports
@@ -36,6 +39,11 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden")
 SIDE = 4096  # the benchmarked fields: bench.py's u8 inputs (dense, 10% NaN dots)
+BIG = 16384  # the largest user tile (PERF.md section 1): one transform per variant
+WIDE = (2048, BIG)  # 16384-long rows whose labels stay below 2**24 (the coarse tail)
+# More fine and coarse rows than the 4096 grid rows of the scan kernels'
+# cell launches, so that their row-stride loops run; the h-window binds.
+TALL = (9001, 700)
 
 # The least time the card could take (H100 SXM at 700 W): bytes over
 # 3.35 TB/s, operations over 67 T/s (the peak rate outside the tensor cores,
@@ -74,9 +82,12 @@ def main() -> int:
     from rustronomy_watershed_tpu_torch.ops import flood, flood_block, pack, priority, relax
     from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
     from rustronomy_watershed_tpu_torch.ops.level_driver import run_levels_impl
-    from rustronomy_watershed_tpu_torch.ops.pipeline import watershed_e2e
+    from rustronomy_watershed_tpu_torch.ops.pipeline import max_seed_count, watershed_e2e
     from rustronomy_watershed_tpu_torch.ops.seeds import local_extrema_mask, paint_seeds, seed_labels_from_mask
     from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_fields import serpentine  # NumPy only
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -281,6 +292,9 @@ def main() -> int:
     odd = rng8.integers(0, 254, (1023, 1031)).astype(np.uint8)
     odd[rng8.random(odd.shape) < 0.1] = 255
     narrow = rng8.integers(0, 254, (1001, 3)).astype(np.uint8)
+    rngt = np.random.default_rng(9)
+    tall = rngt.integers(0, 254, TALL).astype(np.uint8)
+    tall[rngt.random(TALL) < 0.1] = 255
 
     def fixed_labels(a, seeds=None):
         lab0_ = None if seeds is None else to_dev(paint_seeds(a.shape, seeds))
@@ -294,6 +308,7 @@ def main() -> int:
         "border seeds 1024^2": fixed_labels(uni, border),
         "odd 1023x1031 10% dots": fixed_labels(odd),
         "w=3 1001x3": fixed_labels(narrow, narrow_seeds),
+        f"tall {TALL[0]}x{TALL[1]} 10% dots": fixed_labels(tall),
     }
     coarse_err = {"coarsen": 0, "coarse_round": 0, "coarse_broadcast": 0}
     for label, lab in coarse_fields.items():
@@ -520,9 +535,235 @@ def main() -> int:
     print(f"[16 time] flood {SIDE}^2 one call of {fs} sweeps at level 200 from the seeds: kernel {flood_ms:.4f} ms, "
           f"plain {flood_plain_ms:.3f} ms; a quiet call (the level-60 fixed point) {quiet_ms:.4f} ms; gpu={gpu}")
 
+    # -- 17: the fine scan tail's kernels against their twins -----------------
+    def hold(errs, kname, got, want, what):
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(err == 0, f"{kname} kernel == twin on {what}")
+        errs[kname] = max(errs[kname], err)
+        return got
+
+    def rounds_against_twins(x, passes, errs, label, window=None):
+        """A two-pass tail (the package's own round loop) through the
+        kernels, every pass held against its twin on the same input (planes
+        and flags; the twin runs first, as the kernel may write over its
+        input); returns the fixed point and the rounds."""
+        (fname, fk, fp), (bname, bk, bp) = passes
+
+        def fwd(y, out=None):
+            want = fp(y)
+            return hold(errs, fname, fk(y, out=out), want, f"{label}, pass 1")
+
+        def bwd(y, k, out, scratch):
+            hw = () if window is None else (window(k),)
+            want = bp(y, *hw)
+            return hold(errs, bname, bk(y, *hw, out=out, scratch=scratch), want, f"{label}, round {k}")
+
+        return sm._two_pass_rounds(x, fwd, bwd)
+
+    rng17 = np.random.default_rng(17)
+
+    def sparse_labels(shape):
+        return to_dev(np.where(rng17.random(shape) < 0.3, 0, rng17.integers(1, 1 << 26, shape)).astype(np.int32))
+
+    fine_passes = (("fwd_v", sm.fwd_v_kernel, sm.fwd_v_plain), ("bwd_vh", sm.bwd_vh_kernel, sm.bwd_vh_plain))
+    lab_d = coarse_fields["10% 255-dots 4096^2"]
+    fine_fields = {
+        f"10% 255-dots {SIDE}^2 labels": lab_d,
+        "odd 1023x1031 10% dots": coarse_fields["odd 1023x1031 10% dots"],
+        "uniform 63x97": fixed_labels(fields["uniform 63x97"]),
+        f"{SIDE}x1 labels": sparse_labels((SIDE, 1)),
+        f"{SIDE}x2 labels": sparse_labels((SIDE, 2)),
+        "serpentine 48^2": to_dev(serpentine()),
+        f"tall {TALL[0]}x{TALL[1]} 10% dots": coarse_fields[f"tall {TALL[0]}x{TALL[1]} 10% dots"],
+    }
+    fine_err = {"fwd_v": 0, "bwd_vh": 0}
+    for label, lab in fine_fields.items():
+        out, rounds = rounds_against_twins(lab, fine_passes, fine_err, label)
+        check(torch.equal(out, sm.component_min_labels_plain(lab)), f"fine tail == oracle on {label}")
+        print(f"[17 fine] {label}: fwd_v and bwd_vh bit-equal to their twins (planes and flags) "
+              f"over all {rounds} rounds; tail == oracle")
+
+    # -- 18: the legacy coarse rounds (RWT_COARSE_MULTI=0) against their twins -
+    coarse_passes = (("cfwd_v", sm.cfwd_v_kernel, sm.cfwd_v_plain), ("cbwd_vh", sm.cbwd_vh_kernel, sm.cbwd_vh_plain))
+    legacy_err = {"cfwd_v": 0, "cbwd_vh": 0}
+    for label, lab in coarse_fields.items():
+        windows = [("legacy windows", sm._legacy_window)]
+        if lab is lab_d:
+            windows.append(("full width", lambda k: None))
+        for sched, window in windows:
+            cfin, rounds = rounds_against_twins(sm.coarsen_kernel(lab), coarse_passes, legacy_err, f"{label} ({sched})", window)
+            check(torch.equal(sm.coarse_broadcast_kernel(cfin, lab), sm.component_min_labels_plain(lab)),
+                  f"legacy coarse tail == oracle on {label} ({sched})")
+            print(f"[18 legacy] {label} ({sched}): cfwd_v and cbwd_vh bit-equal to their twins over all "
+                  f"{rounds} rounds; tail == oracle")
+    # The legacy schedule's own path: the merging transform with the switch off.
+    default_d = watershed_e2e(dots_dev, merging=True, device=dev)
+    sm._COARSE_MULTI = False
+    try:
+        _ext.reset_launches()
+        legacy_d = watershed_e2e(dots_dev, merging=True, device=dev)
+        torch.cuda.synchronize()
+        legacy_counts = dict(_ext.launches)
+        legacy_ms = median_ms(lambda: watershed_e2e(dots_dev, merging=True, device=dev), 5)
+    finally:
+        sm._COARSE_MULTI = True
+    check(legacy_counts["cfwd_v"] > 0 and legacy_counts["cbwd_vh"] > 0 and legacy_counts["coarse_round"] == 0,
+          "the legacy merging e2e launched cfwd_v and cbwd_vh, no coarse_round")
+    check(sum(legacy_counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, "no plain twin on the legacy merging e2e")
+    check(torch.equal(legacy_d, default_d), "legacy schedule == default coarse tail")
+    print(f"[18 legacy] {SIDE}^2 10% dots watershed_e2e(merging=True) with RWT_COARSE_MULTI=0 equals the default: "
+          f"{legacy_counts['cbwd_vh']} legacy rounds against {merge_runs['10% dots']['coarse_round']} default rounds; "
+          f"{legacy_ms:.3f} ms against {dots_ms:.3f} ms; launches {legacy_counts}; gpu={gpu}")
+
+    y_d = sm.fwd_v_kernel(lab_d)[0]
+    c_d = sm.coarsen_kernel(lab_d)
+    cy_d = sm.cfwd_v_kernel(c_d)[0]
+    scratch_f, scratch_c = torch.empty_like(y_d), torch.empty_like(c_d)
+    pass_ms = {
+        "fwd_v": (median_ms(lambda: sm.fwd_v_kernel(lab_d), 20), median_ms(lambda: sm.fwd_v_plain(lab_d), 5)),
+        "bwd_vh": (median_ms(lambda: sm.bwd_vh_kernel(y_d, scratch=scratch_f), 20), median_ms(lambda: sm.bwd_vh_plain(y_d), 5)),
+        "cfwd_v": (median_ms(lambda: sm.cfwd_v_kernel(c_d), 20), median_ms(lambda: sm.cfwd_v_plain(c_d), 5)),
+        "cbwd_vh": (median_ms(lambda: sm.cbwd_vh_kernel(cy_d, sm._COARSE_HWIN, scratch=scratch_c), 20),
+                    median_ms(lambda: sm.cbwd_vh_plain(cy_d, sm._COARSE_HWIN), 5)),
+        "cbwd_vh full width": (median_ms(lambda: sm.cbwd_vh_kernel(cy_d, scratch=scratch_c), 20),
+                               median_ms(lambda: sm.cbwd_vh_plain(cy_d), 5)),
+    }
+    px, cells = SIDE * SIDE, (SIDE // 2) * SIDE
+    pass_bounds = {  # plane in, plane out; ~6 ops per cell for a scan, ~25 for pass 2
+        "fwd_v": bound(px * 8, px * 6), "bwd_vh": bound(px * 8, px * 25),
+        "cfwd_v": bound(cells * 8, cells * 6), "cbwd_vh": bound(cells * 8, cells * 25),
+        "cbwd_vh full width": bound(cells * 8, cells * 25),
+    }
+    for kname, (ms, plain_ms) in pass_ms.items():
+        b_ms, b_by = pass_bounds[kname]
+        print(f"[18 time] {kname} {SIDE}^2 dot labels: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}); gpu={gpu}")
+    del y_d, c_d, cy_d, scratch_f, scratch_c
+
+    # -- 19: 16384^2 -----------------------------------------------------------
+    rng19 = np.random.default_rng(0)  # drawn as phases 3 and 4 draw the 4096^2 fields
+    dense16 = rng19.integers(0, 254, (BIG, BIG)).astype(np.uint8)
+    dots16 = dense16.copy()
+    dots16[rng19.random((BIG, BIG)) < 0.1] = 255
+    big = {"dense": to_dev(dense16), "10% dots": to_dev(dots16)}
+    del dense16, dots16
+    check(max_seed_count((BIG, BIG)) >= 1 << 24, f"the {BIG}^2 label bound fails the coarse gate")
+    t0 = time.perf_counter()
+    exact16 = {k: priority.relax_transform(f, seed_labels_from_mask(local_extrema_mask(f)))[0] for k, f in big.items()}
+    torch.cuda.synchronize()
+    print(f"[19 {BIG}^2] exact engine on both fields {time.perf_counter() - t0:.1f} s")
+    big_runs = {}
+    for label, field in big.items():
+        for merging in (False, True):
+            variant = "merging" if merging else "segmenting"
+            _ext.reset_launches()
+            got = watershed_e2e(field, merging=merging, device=dev)
+            torch.cuda.synchronize()
+            counts = dict(_ext.launches)
+            want = sm.component_min_labels_plain(exact16[label]) if merging else exact16[label]
+            check(torch.equal(got, want), f"{BIG}^2 {label} {variant} e2e == exact engine" + (" + oracle" if merging else ""))
+            check(sum(counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, f"no plain twin on the {BIG}^2 {label} {variant} e2e")
+            check(counts["pack"] == 1 and counts["relax"] > 0, f"{BIG}^2 {label} {variant} e2e launched pack and relax")
+            if merging:
+                tail = label == "10% dots"
+                check(counts["merge_tail" if tail else "merge_shortcut"] == 1, f"{BIG}^2 {label} merging route")
+                check((counts["fwd_v"] > 0 and counts["bwd_vh"] > 0) == tail, f"{BIG}^2 {label}: the fine tail ran iff the tail did")
+                check(counts["coarsen"] == counts["coarse_round"] == counts["cbwd_vh"] == 0, f"{BIG}^2 {label}: no coarse kernel")
+                if tail:
+                    merged_e2e16 = got  # equal to the exact engine + oracle
+            del got, want
+            big_runs[(label, variant)] = counts
+            print(f"[19 {BIG}^2] {label} watershed_e2e({variant}) equals the exact engine"
+                  + (" + oracle" if merging else "") + f"; launches {counts}")
+    dots16_dev, lab16 = big["10% dots"], exact16["10% dots"]
+
+    # The fine tail at the main path's shape: every pass against its twin.
+    merged16, tail_rounds16 = rounds_against_twins(lab16, fine_passes, fine_err, f"{BIG}^2 10% dots labels")
+    check(tail_rounds16 == big_runs[("10% dots", "merging")]["bwd_vh"], f"{BIG}^2 fine tail rounds == the e2e's")
+    check(torch.equal(merged16, merged_e2e16), f"{BIG}^2 fine tail == exact engine + oracle")
+    print(f"[19 {BIG}^2] 10% dots labels: fwd_v and bwd_vh bit-equal to their twins (planes and flags) "
+          f"over all {tail_rounds16} rounds; tail == oracle")
+    del merged16, merged_e2e16
+
+    # The relax kernel at width 16384 against its twin, one call each way.
+    v16, key16, lab16_0, _ = pack.pack_kernel(dots16_dev)
+    relax2d_err = 0
+    for stats in (False, True):
+        got = relax.relax_block_kernel(v16, key16, lab16_0, s, stats=stats)
+        want = relax.relax_block_plain(v16, key16, lab16_0, s, stats=stats)
+        torch.cuda.synchronize()
+        relax2d_err = max(relax2d_err, max_err(got, want))
+        check(relax2d_err == 0, f"relax kernel == twin at {BIG}^2 (stats={stats})")
+        del got, want
+    print(f"[19 {BIG}^2] relax kernel at width {BIG}: one call of {s} sweeps, planes and flags bit-equal to the twin, "
+          "with and without statistics")
+
+    # 16384-long rows with labels below 2**24: the coarse tail.
+    rngw = np.random.default_rng(19)
+    wide = rngw.integers(0, 254, WIDE).astype(np.uint8)
+    wide[rngw.random(WIDE) < 0.1] = 255
+    wide_dev = to_dev(wide)
+    _ext.reset_launches()
+    got = watershed_e2e(wide_dev, merging=True, device=dev)
+    torch.cuda.synchronize()
+    wide_counts = dict(_ext.launches)
+    seg_w, _ = priority.relax_transform(wide_dev, seed_labels_from_mask(local_extrema_mask(wide_dev)))
+    check(torch.equal(got, sm.component_min_labels_plain(seg_w)), f"{WIDE[0]}x{WIDE[1]} merging e2e == exact engine + oracle")
+    check(wide_counts["merge_tail"] == 1 and wide_counts["coarse_round"] > 0 and wide_counts["fwd_v"] == 0,
+          f"{WIDE[0]}x{WIDE[1]} merging e2e ran the coarse tail")
+    check(sum(wide_counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, f"no plain twin on the {WIDE[0]}x{WIDE[1]} e2e")
+    print(f"[19 wide] {WIDE[0]}x{WIDE[1]} 10% dots watershed_e2e(merging=True) equals the exact engine + oracle "
+          f"on the coarse tail; launches {wide_counts}")
+    del got, seg_w, wide_dev
+
+    # The public API on a two-column field: the gate fails through w < 3.
+    rnga = np.random.default_rng(20)
+    thin = rnga.integers(0, 254, (SIDE, 2)).astype(np.uint8)
+    thin[rnga.random(thin.shape) < 0.1] = 255
+    thin_seeds = sorted({(int(r), int(c)) for r, c in zip(rnga.integers(0, SIDE, 600), rnga.integers(0, 2, 600))})
+    _ext.reset_launches()
+    got = wm.transform(thin, thin_seeds)
+    thin_counts = dict(_ext.launches)
+    want = TransformBuilder.default().set_device("cpu").build_merging().transform(thin, thin_seeds)
+    check(np.array_equal(got, want) and (got != 0).any(), f"{SIDE}x2 merging transform == the plain route")
+    check(thin_counts["merge_tail"] == 1 and thin_counts["fwd_v"] > 0 and thin_counts["bwd_vh"] > 0
+          and thin_counts["coarsen"] == 0, f"{SIDE}x2 merging transform ran the fine kernels")
+    check(sum(thin_counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, f"no plain twin on the {SIDE}x2 transform")
+    print(f"[19 api] {SIDE}x2 build_merging().transform ({len(thin_seeds)} seeds) equals the plain route on the fine "
+          f"kernels; launches {thin_counts}")
+
+    # Times at 16384^2.
+    for label, field in big.items():
+        for merging in (False, True):
+            variant = "merging" if merging else "segmenting"
+            reps = 3 if (merging and label == "10% dots") else 5
+            ms = median_ms(lambda: watershed_e2e(field, merging=merging, device=dev), reps)
+            print(f"[19 time] {BIG}^2 {label} {variant} e2e {ms:.3f} ms = {BIG * BIG / ms / 1e3:.1f} Mpix/s, "
+                  f"relax calls {big_runs[(label, variant)]['relax']}; gpu={gpu}")
+    tail_ms16 = once_ms(lambda: sm.component_min_fine(lab16))
+    print(f"[19 time] {BIG}^2 10% dots fine tail {tail_ms16:.3f} ms in {tail_rounds16} rounds "
+          f"({tail_ms16 / tail_rounds16:.3f} ms per round); gpu={gpu}")
+    y16 = sm.fwd_v_kernel(lab16)[0]
+    scratch16 = torch.empty_like(y16)
+    big_ms = {
+        "relax2d": (median_ms(lambda: relax.relax_block_kernel(v16, key16, lab16_0, s), 10),
+                    median_ms(lambda: relax.relax_block_plain(v16, key16, lab16_0, s), 3)),
+        "fwd_v": (median_ms(lambda: sm.fwd_v_kernel(lab16), 10), median_ms(lambda: sm.fwd_v_plain(lab16), 3)),
+        "bwd_vh": (median_ms(lambda: sm.bwd_vh_kernel(y16, scratch=scratch16), 10), median_ms(lambda: sm.bwd_vh_plain(y16), 3)),
+    }
+    px16 = BIG * BIG
+    big_bounds = {
+        "relax2d": bound(px16 * (1 + 8 + 8), px16 * s * 25),
+        "fwd_v": bound(px16 * 8, px16 * 6), "bwd_vh": bound(px16 * 8, px16 * 25),
+    }
+    for kname, (ms, plain_ms) in big_ms.items():
+        b_ms, b_by = big_bounds[kname]
+        print(f"[19 time] {kname} {BIG}^2: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); gpu={gpu}")
+    del big, exact16, v16, key16, lab16_0, y16, scratch16, lab16, dots16_dev
+
     # Bytes each function must move at 4096^2 (each input read once, each
     # output written once) and the integer operations it does per cell.
-    px, cells = SIDE * SIDE, (SIDE // 2) * SIDE
     bounds = {
         "pack": bound(px * (1 + 1 + 4 + 4), px * 20),  # 8 compares + numbering per pixel
         "relax": bound(px * (1 + 8 + 8), px * s * 25),  # ~25 ops per cell and sweep
@@ -530,6 +771,8 @@ def main() -> int:
         "coarse_round": bound(2 * cells * 4, 2 * cells * 12),  # plane in, plane out; two passes of scans
         "coarse_broadcast": bound(px * 4 + cells * 4 + px * 4, px * 6),
         "flood": bound(px * (1 + 4 + 4), px * fs * 12),  # image + labels in, labels out; ~12 ops per cell and sweep
+        **{k: big_bounds[k] for k in ("relax2d", "fwd_v", "bwd_vh")},  # at 16384^2
+        **{k: pass_bounds[k] for k in ("cfwd_v", "cbwd_vh")},
     }
     dot_counts = merge_runs["10% dots"]
     rows = [
@@ -537,22 +780,33 @@ def main() -> int:
         ("relax", "csrc/relax.cu", "rustronomy_watershed_tpu/ops/pallas_relax.py:254", launches["relax"], relax_err, relax_ms, relax_plain_ms),
         ("coarsen", "csrc/coarsen.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:687", dot_counts["coarsen"],
          coarse_err["coarsen"], coarsen_ms, coarsen_plain_ms),
-        ("coarse_round", "csrc/coarse_round.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:1001", dot_counts["coarse_round"],
+        ("coarse_round", "csrc/scan_round.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:1001", dot_counts["coarse_round"],
          coarse_err["coarse_round"], round_ms, round_plain_ms),
         ("coarse_broadcast", "csrc/coarse_broadcast.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:1185",
          dot_counts["coarse_broadcast"], coarse_err["coarse_broadcast"], bcast_ms, bcast_plain_ms),
         ("flood", "csrc/flood.cu", "rustronomy_watershed_tpu/ops/pallas_flood.py:106",
          level_runs[(f"uniform {SIDE}^2", "segmenting")]["flood"], flood_err, flood_ms, flood_plain_ms),
+        ("relax2d", "csrc/relax.cu", "rustronomy_watershed_tpu/ops/pallas_relax.py:920",
+         big_runs[("10% dots", "merging")]["relax"], relax2d_err, *big_ms["relax2d"]),
+        ("fwd_v", "csrc/scan_round.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:129",
+         big_runs[("10% dots", "merging")]["fwd_v"], fine_err["fwd_v"], *big_ms["fwd_v"]),
+        ("bwd_vh", "csrc/scan_round.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:212",
+         big_runs[("10% dots", "merging")]["bwd_vh"], fine_err["bwd_vh"], *big_ms["bwd_vh"]),
+        ("cfwd_v", "csrc/scan_round.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:836",
+         legacy_counts["cfwd_v"], legacy_err["cfwd_v"], *pass_ms["cfwd_v"]),
+        ("cbwd_vh", "csrc/scan_round.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:898",
+         legacy_counts["cbwd_vh"], legacy_err["cbwd_vh"], *pass_ms["cbwd_vh"]),
     ]
     kernels = []
     for kname, src, replaces, n, err, ms, plain_ms in rows:
+        check(n > 0 and err == 0, f"{kname}: launched on its path and bit-equal to its twin")
         b_ms, b_by = bounds[kname]
         kernels.append(dict(
             name=kname, route="cuda", source=f"rustronomy_watershed_tpu_torch/{src}", replaces=replaces,
             launches=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None,  # no single PyTorch call computes any of these functions
         ))
-        print(f"[12 bound] {kname}: {ms:.4f} ms against a bound of {b_ms:.4f} ms ({b_by}); gpu={gpu}")
+        print(f"[20 bound] {kname}: {ms:.4f} ms against a bound of {b_ms:.4f} ms ({b_by}); gpu={gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -12,7 +12,7 @@ ops/flood_block.py) adds one to ``launches`` where it launches its kernel,
 and its plain-PyTorch twin adds one to the ``*_plain`` entry, so a run can
 show which path it took.  The merging driver also records its route per
 transform: ``merge_shortcut`` (the single-component broadcast) or
-``merge_tail`` (the component-min tail); the level sweep's merge phase
+``merge_tail`` (the component-min tail, coarse or fine); the level sweep's merge phase
 counts its label-table rounds as ``merge_round`` (ops/merge.py).
 """
 
@@ -36,7 +36,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-KERNELS = ("pack", "relax", "coarsen", "coarse_round", "coarse_broadcast", "flood")
+KERNELS = (
+    "pack", "relax", "coarsen", "coarse_round", "coarse_broadcast", "flood",
+    "fwd_v", "bwd_vh", "cfwd_v", "cbwd_vh",
+)
 launches = {
     **{k: 0 for k in KERNELS},
     **{f"{k}_plain": 0 for k in KERNELS},
@@ -142,6 +145,10 @@ def lib() -> ctypes.CDLL:
         L.rwt_coarse_broadcast.restype = I
         L.rwt_flood.argtypes = [P, P, P, P, I, I, I, I, I, P]
         L.rwt_flood.restype = I
+        L.rwt_scan_fwd_v.argtypes = [P, P, P, I, I, I, P]
+        L.rwt_scan_fwd_v.restype = I
+        L.rwt_scan_bwd_vh.argtypes = [P, P, P, P, I, I, I, I, P]
+        L.rwt_scan_bwd_vh.restype = I
         L.rwt_error_string.argtypes = [I]
         L.rwt_error_string.restype = ctypes.c_char_p
         _lib = L

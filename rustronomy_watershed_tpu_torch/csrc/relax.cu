@@ -1,13 +1,19 @@
 // Relax kernel: `steps` global Jacobi sweeps of the packed-key priority
 // relaxation in one launch.
 //
-// Replaces the TPU kernel rustronomy_watershed_tpu/ops/pallas_relax.py
-// `_relax_kernel` (launched by `relax_block`), plain variant: the per-sweep
-// update of pallas_relax.py:413-438, the change flags, the convergence
-// witness, the d-saturation detector and (with `stats`) the stats-only
-// epilogue of pallas_relax.py:575-604.  Not carried over: the fused-scan
-// epilogue, `ctr_cols`, band-activity gating and the in-place aliased band
-// DMAs.
+// Replaces two TPU kernels of rustronomy_watershed_tpu/ops/pallas_relax.py:
+// `_relax_kernel` (full-width bands, launched by `relax_block`) and
+// `_relax_kernel2d` (column stripes with a 128-lane halo for widths >= 5120,
+// launched by `relax_block2d`).  Both compute the same function: the
+// per-sweep update of pallas_relax.py:413-438, the change flags, the
+// convergence witness, the d-saturation detector and (with `stats`) the
+// stats-only epilogue of pallas_relax.py:575-604.  The 2-D tiles below serve
+// every width, so the stripe geometry (`resolve_stripe_config`,
+// RWT_RELAX_STRIPES) was TPU tuning and is not carried over; the Jacobi
+// ping-pong and centre-only writes are the striped kernel's design.  Not
+// carried over either: the fused-scan epilogue, `ctr_cols`, band-activity
+// gating and the in-place aliased band DMAs.  Index arithmetic is in size_t
+// and the grid is (ceil(w/T), ceil(h/T)): 256 x 256 blocks at 16384^2.
 //
 // Update of one cell (key = L << d_bits | d, see ops/relax.py):
 //   best  = min(key, max(ext(min4 kq), vcand)),  ext(a) = min(a+1, a|d_mask)

@@ -4,8 +4,9 @@ Counterpart of ``rustronomy_watershed_tpu.ops.level_driver.run_levels_impl``.
 Four engines, bit-identical labels:
 
 * ``backend='packed'`` — the packed-key engine (ops/pack.py + ops/relax.py)
-  and, for merging, the coarse component-min engine (ops/scan_merge.py): the
-  CUDA kernels on a CUDA device, their plain twins on the CPU.  The
+  and, for merging, the coarse component-min engine, or the fine scan tail
+  when the labels reach 2**24 or w < 3 (ops/scan_merge.py): the CUDA
+  kernels on a CUDA device, their plain twins on the CPU.  The
   counterpart of the JAX ``'relax_pallas'`` backend.
 * ``backend='relax'`` — the exact unpacked engine (ops/priority.py) and,
   for merging, the component-min oracle.
@@ -23,9 +24,9 @@ driver takes them from the certifying call, whose planes are the fixed
 point, in the same flag read.  When no interior cell is unclaimed and no
 border cell is claimed, the claimed set is the interior rectangle, one
 component, and the labels are a broadcast of its least label (the
-shortcut).  Otherwise the coarse tail runs.  The JAX driver trusts only the
-first relax call's statistics, which on this card's schedule never
-certifies; the schedule differs, the labels do not.
+shortcut).  Otherwise the component-min tail runs, coarse or fine.  The
+JAX driver trusts only the first relax call's statistics, which on this
+card's schedule never certifies; the schedule differs, the labels do not.
 
 The level sweeps step the reference's per-level loop (reference
 src/lib.rs:1379-1521) from the host: per level the flood fixed point, then
@@ -50,7 +51,7 @@ from .histogram import lake_sizes, value_histogram
 from .merge import merge_touching
 from .priority import relax_transform, sizes_from_levels
 from .relax import _key_consts, relax_packed_planes, relax_transform_packed
-from .scan_merge import component_min_coarse, component_min_labels_plain
+from .scan_merge import component_min_labels, component_min_labels_plain
 from .seeds import local_extrema_mask, seed_labels_from_mask
 
 
@@ -142,7 +143,7 @@ def _shortcut(shape, device, batch, batch_mins, gmin):
 
 def _merge_full_depth(img, labels0, *, n_labels, steps, device, batch, batch_mins):
     """Merging at max_water_level >= 254 on the packed engine: relax with
-    statistics, then the shortcut or the coarse tail.  Returns
+    statistics, then the shortcut or the component-min tail.  Returns
     ``(labels, starved)``."""
     _, lab, starved, (n_uncl, any_border, gmin) = relax_packed_planes(
         img, labels0, steps=steps, device=device, stats=True
@@ -164,7 +165,7 @@ def _merge_full_depth(img, labels0, *, n_labels, steps, device, batch, batch_min
         _ext.launches["merge_shortcut"] += 1
         return _shortcut((h, w), lab.device, batch, batch_mins, gmin), starved
     _ext.launches["merge_tail"] += 1
-    return component_min_coarse(lab, n_labels)[0], starved
+    return component_min_labels(lab, max_label=n_labels)[0], starved
 
 
 def _relax_collect(img, labels0, *, backend, max_water_level, n_labels, collect, steps, dev):
@@ -218,7 +219,8 @@ def run_levels_impl(
 
     ``labels0=None`` takes the seeds from the image (through the pack kernel
     on ``'packed'``).  ``n_labels`` bounds the labels, 1..n_labels: merging
-    and the collects need it, and the coarse tail's gate reads it.
+    and the collects need it, and the coarse tail's gate reads it (labels
+    of 2**24 or more take the fine tail).
     ``steps`` is the sweeps per kernel call of ``'packed'`` or ``'flood'``;
     ``sweep_fn`` replaces ``flood_sweep`` on ``'sweep'`` (the flood kernel
     ignores it, as the JAX ``'pallas'`` backend does).  ``batch=(b, hs,
@@ -256,7 +258,7 @@ def run_levels_impl(
             )
             if merging:
                 _ext.launches["merge_tail"] += 1
-                res = component_min_coarse(res, n_labels)[0]
+                res = component_min_labels(res, max_label=n_labels)[0]
     elif backend == "relax":
         res, starved = _relax_collect(
             img, labels0, backend="relax", max_water_level=max_water_level,

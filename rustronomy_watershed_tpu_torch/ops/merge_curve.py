@@ -29,7 +29,7 @@ import torch
 from .. import _ext
 from .priority import relax_transform
 from .relax import _key_consts, relax_transform_packed
-from .scan_merge import component_min_coarse, component_min_labels_plain
+from .scan_merge import component_min_labels, component_min_labels_plain
 
 
 def merge_edges(seg_labels, claim_levels, *, max_water_level: int):
@@ -99,7 +99,7 @@ def _device_curves(
     final = labels
     if with_final:
         if backend == "packed":
-            final = component_min_coarse(labels, n_labels)[0]
+            final = component_min_labels(labels, max_label=n_labels)[0]
         else:
             final = component_min_labels_plain(labels)
     lv8 = claim.clamp(0, max_water_level + 1).to(torch.uint8)

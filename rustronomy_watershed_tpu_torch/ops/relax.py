@@ -1,7 +1,10 @@
 """Packed-key priority relaxation: the segmenting transform on the card.
 
-Counterpart of ``rustronomy_watershed_tpu.ops.pallas_relax`` (1-D band path,
-segmenting branch).  The lexicographic claim key ``(L, d)`` of ops/priority.py
+Counterpart of ``rustronomy_watershed_tpu.ops.pallas_relax``: both its
+full-width band kernel and its column-striped kernel for wide images
+(``relax_block2d``), which compute one function; the port tiles every width
+in 2-D and has no stripe geometry (tests/test_torch_stripes.py holds the
+twin against both).  The lexicographic claim key ``(L, d)`` of ops/priority.py
 packs into one int32, ``key = L << d_bits | d`` (constants.py), which makes
 one Jacobi sweep branch-free:
 

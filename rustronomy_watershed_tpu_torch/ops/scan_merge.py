@@ -7,21 +7,33 @@ between two border pixels are blocked: the vertical edges inside columns 0
 and w-1 and the horizontal edges inside rows 0 and h-1 (the reference only
 detects merge pairs through 3x3 windows centred on interior pixels).
 
-Two engines, bit-identical labels:
+Three engines, bit-identical labels:
 
 * ``component_min_labels_plain`` — the readable oracle, a port of the JAX
   package's associative-scan form (scan_merge.py:553-640): segmented run-min
   scans along columns, then rows, with the blocked border lines restored,
-  until nothing changes.  Plain PyTorch; the CPU engine when a coarse gate
-  fails.
+  until nothing changes.  Plain PyTorch.
+* ``component_min_fine`` — the fine scan tail (the JAX package's
+  ``_component_min_pallas`` / ``component_min_from_padded``,
+  scan_merge.py:409-550): rounds of two passes on the label plane,
+  ``fwd_v`` (forward vertical scan) and ``bwd_vh`` (backward vertical scan,
+  horizontal run-min, violation stencil), both in csrc/scan_round.cu.  One
+  round equals one oracle iteration.  It serves every plane;
+  ``component_min_labels`` runs it when the coarse gate fails (labels
+  >= 2**24, or w < 3).
 * ``component_min_coarse`` — the 2x-row-coarsened engine (the JAX package's
-  ``component_min_coarse_from_padded``, scan_merge.py:1268-1370) in three
-  kernels: ``coarsen`` (csrc/coarsen.cu) packs each column's fine row pair
-  into one coarse cell with four scan-reset bits, ``coarse_round``
-  (csrc/coarse_round.cu) runs rounds of full-length segmented min scans to
-  the fixed point, ``coarse_broadcast`` (csrc/coarse_broadcast.cu) expands
-  the result back to the fine plane.  Each kernel has its plain twin here; a
-  CPU tensor runs the twin, a CUDA tensor the kernel.
+  ``component_min_coarse_from_padded``, scan_merge.py:1268-1441):
+  ``coarsen`` (csrc/coarsen.cu) packs each column's fine row pair into one
+  coarse cell with four scan-reset bits, rounds run to the fixed point,
+  ``coarse_broadcast`` (csrc/coarse_broadcast.cu) expands the result back to
+  the fine plane.  The rounds are ``coarse_round`` (csrc/scan_round.cu,
+  the port's schedule) by default, or with ``RWT_COARSE_MULTI=0`` the JAX
+  package's legacy two-pass rounds ``cfwd_v`` / ``cbwd_vh``
+  (csrc/scan_round.cu, coarse encoding), whose h-scans are windowed to
+  ``RWT_COARSE_HWIN`` lanes on most rounds.
+
+Each kernel has its plain twin here; a CPU tensor runs the twin, a CUDA
+tensor the kernel (or raises).
 
 Why the coarse graph is exact (scan_merge.py:643-678): a column's fine pair
 (2i, 2i+1) is internally connected when both are claimed, so one node per
@@ -38,10 +50,12 @@ bits 0..23 (0 = empty node) and the forward / backward, vertical /
 horizontal reset bits at 24..27.  A reset bit set means "no edge towards
 the previous (forward) or next (backward) cell"; empty cells set all four.
 A cell outside the image reads as unclaimed, so an odd ``h`` needs no
-padding.
+padding.  The fine planes carry no aprons either: cells outside read as 0.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -54,6 +68,26 @@ _CB_VB = 25  # backward-vertical reset bit
 _CB_HF = 26  # forward-horizontal reset bit
 _CB_HB = 27  # backward-horizontal reset bit
 _BIG = 2**30  # the oracle's "no label" inside a run (scan_merge.py:555)
+
+
+def _parse_coarse_hwin() -> int | None:
+    """``RWT_COARSE_HWIN``, parsed once at import (scan_merge.py:53-70): the
+    legacy coarse rounds' h-scan window in lanes, default 256; ``0``,
+    ``off`` or empty mean full width; a value below 2 raises."""
+    raw = os.environ.get("RWT_COARSE_HWIN", "256")
+    if raw in ("", "0", "off"):
+        return None
+    v = int(raw)
+    if v < 2:
+        raise ValueError(f"RWT_COARSE_HWIN={raw!r}: need >= 2 lanes, or 0/off to disable")
+    return v
+
+
+_COARSE_HWIN = _parse_coarse_hwin()
+# RWT_COARSE_MULTI=0 selects the legacy two-pass coarse rounds
+# (scan_merge.py:75-81); parsed once at import.  RWT_COARSE_K belongs to the
+# TPU's multi-iteration kernel, whose schedule the port does not carry.
+_COARSE_MULTI = os.environ.get("RWT_COARSE_MULTI", "1") not in ("0", "off")
 
 
 # -- plain building blocks ----------------------------------------------------
@@ -82,6 +116,41 @@ def _run_min(x, dim: int):
     return torch.where(zero, 0, y)
 
 
+def _reach(n: int, h_window) -> int:
+    """How many cells a windowed h-scan of a line of ``n`` cells reaches
+    back (or ahead) within its run, or -1 for the whole line.  The TPU's
+    lane doubling with a limit runs ceil(log2(min(n, limit))) steps, so it
+    reaches ``2**steps - 1`` cells, not ``limit - 1`` (scan_merge.py:84-126):
+    255 for the default 256, 511 for 300."""
+    if h_window is None:
+        return -1
+    s = 1
+    while s < min(n, h_window):
+        s *= 2
+    return -1 if s - 1 >= n - 1 else s - 1
+
+
+def _window_min_scan(x, reset, reach: int, reverse: bool = False):
+    """``_seg_min_scan`` along rows whose reach is bounded: ``out[i]`` is
+    the min of ``x`` over ``i-reach..i`` back to and including the last
+    reset (``i..i+reach`` with ``reverse``); the whole run when ``reach``
+    is -1.  The windowed form doubles, as the TPU kernel does."""
+    if reach < 0:
+        return _seg_min_scan(x, reset, 1, reverse)
+    if reverse:
+        return _window_min_scan(x.flip(1), reset.flip(1), reach).flip(1)
+    v, r = x, reset
+    s = 1
+    while s <= reach:  # strides 1, 2, 4, ...: a window of 2 * s cells
+        pv = torch.full_like(v, _INF)
+        pr = torch.zeros_like(r)
+        pv[:, s:], pr[:, s:] = v[:, :-s], r[:, :-s]
+        v = torch.where(r, v, torch.minimum(v, pv))
+        r = r | pr
+        s *= 2
+    return v
+
+
 def component_min_labels_plain(labels):
     """Every 4-connected component of nonzero labels (blocked border-border
     edges excluded) replaced by its minimum label — the oracle."""
@@ -102,7 +171,7 @@ def _check_cuda_planes(*planes):
         and t.device == planes[0].device
         for t in planes
     ):
-        raise ValueError("coarse kernels take contiguous 2-D int32 planes on one CUDA device")
+        raise ValueError("scan kernels take contiguous 2-D int32 planes on one CUDA device")
 
 
 def _check_width(w: int):
@@ -116,6 +185,24 @@ def _dispatch(kernel, plain, lead):
     if lead.device.type == "cpu":
         return plain
     raise ValueError(f"unsupported device {lead.device}")
+
+
+def _into(out, plane):
+    if out is None:
+        return plane
+    out.copy_(plane)
+    return out
+
+
+def _round_planes(x, out, scratch):
+    out = torch.empty_like(x) if out is None else out
+    scratch = torch.empty_like(x) if scratch is None else scratch
+    _check_cuda_planes(x, out, scratch)
+    if not x.shape == out.shape == scratch.shape:
+        raise ValueError("scan round planes must share one shape")
+    if scratch.data_ptr() in (x.data_ptr(), out.data_ptr()):
+        raise ValueError("the scan round's scratch plane must not alias its input or output")
+    return out, scratch
 
 
 # -- coarsen: fine labels -> packed coarse plane (csrc/coarsen.cu) ------------
@@ -180,7 +267,7 @@ def coarsen(lab):
     return _dispatch(coarsen_kernel, coarsen_plain, lab)(lab)
 
 
-# -- coarse rounds (csrc/coarse_round.cu) -------------------------------------
+# -- coarse rounds (csrc/scan_round.cu) ---------------------------------------
 
 
 def _coarse_pass(c, dim: int, fwd_bit: int):
@@ -203,22 +290,13 @@ def coarse_round_plain(c, *, out=None, scratch=None):
     _ext.launches["coarse_round_plain"] += 1
     c1, n1 = _coarse_pass(c, 0, _CB_VF)
     c2, n2 = _coarse_pass(c1, 1, _CB_HF)
-    if out is not None:
-        out.copy_(c2)
-        c2 = out
-    return c2, (n1 + n2).reshape(1)
+    return _into(out, c2), (n1 + n2).reshape(1)
 
 
 def coarse_round_kernel(c, *, out=None, scratch=None):
-    """Launch csrc/coarse_round.cu: the v-pass from ``c`` into ``scratch``,
+    """Launch the coarse round of csrc/scan_round.cu: the v-pass from ``c`` into ``scratch``,
     then the h-pass into ``out`` (which may be ``c`` itself)."""
-    out = torch.empty_like(c) if out is None else out
-    scratch = torch.empty_like(c) if scratch is None else scratch
-    _check_cuda_planes(c, out, scratch)
-    if not c.shape == out.shape == scratch.shape:
-        raise ValueError("coarse round planes must share one shape")
-    if scratch.data_ptr() in (c.data_ptr(), out.data_ptr()):
-        raise ValueError("the coarse round's scratch plane must not alias its input or output")
+    out, scratch = _round_planes(c, out, scratch)
     hc, w = c.shape
     changed = torch.empty((1,), dtype=torch.int32, device=c.device)
     err = _ext.lib().rwt_coarse_round(
@@ -276,29 +354,222 @@ def coarse_broadcast(c, lab):
     return _dispatch(coarse_broadcast_kernel, coarse_broadcast_plain, lab)(c, lab)
 
 
-# -- the driver ----------------------------------------------------------------
+# -- round passes (csrc/scan_round.cu) -----------------------------------------
+
+
+def _fine_violations(out):
+    """The fine fixed-point witness (scan_merge.py:294-330) over a whole
+    plane: some claimed 4-neighbour pair holds two labels across an
+    unblocked edge (vertical pairs off the border columns, horizontal pairs
+    off the border rows)."""
+    cl = out > 0
+    v = (out[1:] != out[:-1]) & cl[1:] & cl[:-1]
+    v[:, 0] = False
+    v[:, -1] = False
+    hz = (out[:, 1:] != out[:, :-1]) & cl[:, 1:] & cl[:, :-1]
+    hz[0] = False
+    hz[-1] = False
+    return v.any() | hz.any()
+
+
+def _coarse_violations(c, out):
+    """The coarse witness (scan_merge.py:964-974): some neighbour pair
+    joined by an edge (the forward reset bit of the later cell clear) holds
+    two values."""
+    v = (out[1:] != out[:-1]) & ((c[1:] >> _CB_VF) & 1 == 0)
+    hz = (out[:, 1:] != out[:, :-1]) & ((c[:, 1:] >> _CB_HF) & 1 == 0)
+    return v.any() | hz.any()
+
+
+def _flag(b):
+    return b.to(torch.int32).reshape(1)
+
+
+def fwd_v_plain(x, *, out=None):
+    """Plain twin of the fine pass 1 (scan_merge.py:129-209): the forward
+    vertical segmented min scan, 0 a barrier, border columns kept.  Returns
+    ``(plane, changed)``, ``changed`` a one-element int32 tensor."""
+    _ext.launches["fwd_v_plain"] += 1
+    zero = x == 0
+    y = torch.where(zero, 0, _seg_min_scan(torch.where(zero, _INF, x), zero, 0))
+    y[:, 0], y[:, -1] = x[:, 0], x[:, -1]
+    changed = _flag((y != x).any())  # before ``out``, which may be ``x``, is written
+    return _into(out, y), changed
+
+
+def bwd_vh_plain(y, *, out=None, scratch=None):
+    """Plain twin of the fine pass 2 (scan_merge.py:212-340): the backward
+    vertical scan (border columns kept), the horizontal run-min (border
+    rows kept), and the violation flag of the result."""
+    _ext.launches["bwd_vh_plain"] += 1
+    zero = y == 0
+    z = torch.where(zero, 0, _seg_min_scan(torch.where(zero, _INF, y), zero, 0, reverse=True))
+    z[:, 0], z[:, -1] = y[:, 0], y[:, -1]
+    o = _run_min(z, 1)
+    o[0], o[-1] = z[0], z[-1]
+    return _into(out, o), _flag(_fine_violations(o))
+
+
+def cfwd_v_plain(c, *, out=None):
+    """Plain twin of the legacy coarse pass 1 (scan_merge.py:836-895): the
+    forward vertical scan under the bit-24 resets, reset bits kept."""
+    _ext.launches["cfwd_v_plain"] += 1
+    x = c & _CVAL
+    empty = x == 0
+    v = _seg_min_scan(torch.where(empty, _INF, x), ((c >> _CB_VF) & 1).bool(), 0)
+    y = torch.where(empty, 0, v)
+    return _into(out, (c & ~_CVAL) | y), _flag((y != x).any())
+
+
+def cbwd_vh_plain(c, h_window=None, *, out=None, scratch=None):
+    """Plain twin of the legacy coarse pass 2 (scan_merge.py:898-985): the
+    backward vertical scan under bit 25, then the min of a forward (bit 26)
+    and a backward (bit 27) h-scan, each windowed to ``h_window`` lanes
+    (None: full width), and the violation flag."""
+    _ext.launches["cbwd_vh_plain"] += 1
+    x = c & _CVAL
+    empty = x == 0
+    bit = lambda b: ((c >> b) & 1).bool()  # noqa: E731
+    z = torch.where(empty, _INF, _seg_min_scan(torch.where(empty, _INF, x), bit(_CB_VB), 0, reverse=True))
+    reach = _reach(c.shape[1], h_window)
+    hf = _window_min_scan(z, bit(_CB_HF), reach)
+    hb = _window_min_scan(z, bit(_CB_HB), reach, reverse=True)
+    o = torch.where(empty, 0, torch.minimum(hf, hb))
+    return _into(out, (c & ~_CVAL) | o), _flag(_coarse_violations(c, o))
+
+
+def _fwd_kernel(x, out, coarse: int, name: str):
+    out = torch.empty_like(x) if out is None else out
+    _check_cuda_planes(x, out)
+    if x.shape != out.shape:
+        raise ValueError("scan round planes must share one shape")
+    flag = torch.empty((1,), dtype=torch.int32, device=x.device)
+    h, w = x.shape
+    err = _ext.lib().rwt_scan_fwd_v(x.data_ptr(), out.data_ptr(), flag.data_ptr(), h, w, coarse, _ext.stream_ptr(x))
+    _ext.check(err, f"rwt_scan_fwd_v ({name})")
+    _ext.launches[name] += 1
+    return out, flag
+
+
+def _bwd_kernel(x, out, scratch, coarse: int, reach: int, name: str):
+    out, scratch = _round_planes(x, out, scratch)
+    flag = torch.empty((1,), dtype=torch.int32, device=x.device)
+    h, w = x.shape
+    err = _ext.lib().rwt_scan_bwd_vh(
+        x.data_ptr(), scratch.data_ptr(), out.data_ptr(), flag.data_ptr(), h, w, coarse, reach,
+        _ext.stream_ptr(x),
+    )
+    _ext.check(err, f"rwt_scan_bwd_vh ({name})")
+    _ext.launches[name] += 1
+    return out, flag
+
+
+def fwd_v_kernel(x, *, out=None):
+    """Launch the fine forward pass of csrc/scan_round.cu; ``out`` may be
+    ``x`` itself."""
+    return _fwd_kernel(x, out, 0, "fwd_v")
+
+
+def bwd_vh_kernel(y, *, out=None, scratch=None):
+    """Launch the fine pass 2 of csrc/scan_round.cu: ``y`` -> ``scratch``
+    -> ``out`` (which may be ``y``)."""
+    return _bwd_kernel(y, out, scratch, 0, -1, "bwd_vh")
+
+
+def cfwd_v_kernel(c, *, out=None):
+    return _fwd_kernel(c, out, 1, "cfwd_v")
+
+
+def cbwd_vh_kernel(c, h_window=None, *, out=None, scratch=None):
+    return _bwd_kernel(c, out, scratch, 1, _reach(c.shape[1], h_window), "cbwd_vh")
+
+
+def fwd_v(x, *, out=None):
+    """Fine pass 1 over the whole label plane: ``(plane, changed)``."""
+    return _dispatch(fwd_v_kernel, fwd_v_plain, x)(x, out=out)
+
+
+def bwd_vh(y, *, out=None, scratch=None):
+    """Fine pass 2 over the whole label plane: ``(plane, violated)``."""
+    return _dispatch(bwd_vh_kernel, bwd_vh_plain, y)(y, out=out, scratch=scratch)
+
+
+def cfwd_v(c, *, out=None):
+    """Legacy coarse pass 1: ``(plane, changed)``."""
+    return _dispatch(cfwd_v_kernel, cfwd_v_plain, c)(c, out=out)
+
+
+def cbwd_vh(c, h_window=None, *, out=None, scratch=None):
+    """Legacy coarse pass 2, h-scans windowed to ``h_window`` lanes (None:
+    full width): ``(plane, violated)``."""
+    return _dispatch(cbwd_vh_kernel, cbwd_vh_plain, c)(c, h_window, out=out, scratch=scratch)
+
+
+# -- the drivers ---------------------------------------------------------------
+
+
+def _two_pass_rounds(x, fwd, bwd):
+    """Pass 1, then rounds of pass 2 until one sees no violation, with pass
+    1 again after each violated round (scan_merge.py:409-461); one host
+    read per round.  ``bwd(y, k, out, scratch)`` runs round ``k``.  Returns
+    ``(plane, rounds)``."""
+    y, _ = fwd(x, out=None)
+    scratch = torch.empty_like(y)
+    rounds = 0
+    while True:
+        y, viol = bwd(y, rounds, y, scratch)
+        rounds += 1
+        if not int(viol.item()):
+            return y, rounds
+        y, _ = fwd(y, out=y)
+
+
+def component_min_fine(labels):
+    """Component-min labels on the fine scan tail; returns ``(labels,
+    rounds)``.  A violation-free pass 2 certifies the fixed point: labels
+    only min-propagate inside components, so a state with no differing
+    claimed pair across an unblocked edge is the component minimum
+    (scan_merge.py:409-421)."""
+    lab = labels.to(torch.int32).contiguous()
+    return _two_pass_rounds(
+        lab, fwd_v, lambda y, k, out, scratch: bwd_vh(y, out=out, scratch=scratch)
+    )
+
+
+def _legacy_window(k: int):
+    """Round ``k``'s h-window: full width on rounds 0, 1 and every 4th from
+    3 (scan_merge.py:1410-1421), else ``_COARSE_HWIN``."""
+    return None if k < 2 or k % 4 == 3 else _COARSE_HWIN
+
+
+def _coarse_gate(w: int, n_labels: int) -> bool:
+    """Whether the coarse engine serves the plane: labels (1..n_labels)
+    below 2**24, the packed value width, and ``w >= 3`` (narrower planes
+    have no coarse system)."""
+    return n_labels < 1 << 24 and w >= 3
 
 
 def component_min_coarse(labels, n_labels: int):
     """Component-min labels on the coarse engine; returns ``(labels,
-    rounds)``, ``rounds`` counting the final quiet round.
+    rounds)``.
 
-    ``n_labels`` bounds the labels (1..n_labels).  Gates: labels below
-    2**24 (the packed value width) and ``w >= 3`` (narrower planes have no
-    coarse system).  When a gate fails a CPU plane runs the oracle (rounds
-    0) and a CUDA plane raises: its engine is the fine scan tail, which is
-    not ported yet.  The host reads one change count per round.
+    ``n_labels`` bounds the labels (1..n_labels); the coarse gate must hold
+    (``component_min_labels`` checks it and runs the fine tail when it
+    fails).  Rounds: ``coarse_round`` until one changes no cell (``rounds``
+    counts that quiet round), or with ``RWT_COARSE_MULTI=0`` the legacy
+    two-pass rounds until a pass 2 sees no violation.  The host reads one
+    flag per round.
     """
-    h, w = labels.shape
-    if n_labels >= 1 << 24 or w < 3:
-        if labels.device.type == "cuda":
-            raise NotImplementedError(
-                f"component-min on a {h}x{w} plane with labels up to {n_labels} needs "
-                "the fine scan tail, which is not ported to the PyTorch package yet "
-                "(ROADMAP queue 1 item 10)"
-            )
-        return component_min_labels_plain(labels), 0
+    _check_width(labels.shape[1])
+    if n_labels >= 1 << 24:
+        raise ValueError(f"the coarse engine needs labels below 2**24 (got a bound of {n_labels})")
     c = coarsen(labels)
+    if not _COARSE_MULTI:
+        c, rounds = _two_pass_rounds(
+            c, cfwd_v,
+            lambda y, k, out, scratch: cbwd_vh(y, _legacy_window(k), out=out, scratch=scratch),
+        )
+        return coarse_broadcast(c, labels), rounds
     scratch = torch.empty_like(c)
     rounds = 0
     while True:
@@ -306,3 +577,14 @@ def component_min_coarse(labels, n_labels: int):
         rounds += 1
         if not int(changed.item()):
             return coarse_broadcast(c, labels), rounds
+
+
+def component_min_labels(labels, *, max_label=None):
+    """Every 4-connected component of nonzero labels (blocked border-border
+    edges excluded) replaced by its minimum label, on the card's engines
+    (scan_merge.py:573-610): the coarse engine when ``max_label`` bounds
+    the labels below 2**24 and ``w >= 3``, else the fine tail.  Returns
+    ``(labels, rounds)``."""
+    if max_label is None or not _coarse_gate(labels.shape[1], max_label):
+        return component_min_fine(labels)
+    return component_min_coarse(labels, max_label)

@@ -1,6 +1,6 @@
 """Port parity for the component-min stage on label planes: the oracle
 against the JAX jnp oracle, the coarse tail's twins (csrc/coarsen.cu,
-csrc/coarse_round.cu, csrc/coarse_broadcast.cu) on odd heights and narrow
+csrc/scan_round.cu, csrc/coarse_broadcast.cu) on odd heights and narrow
 planes against the JAX coarse engine (Pallas interpret mode), the coarse
 bits by hand, and the driver's gates.  Integer outputs, tolerance 0."""
 
@@ -85,20 +85,31 @@ def test_component_min_oracle_blocked_border_edges():
 
 
 def test_coarse_gates_and_dispatch():
-    """A failed gate runs the oracle on the CPU (no coarse twin launches);
-    a gate that holds runs the twins, never a kernel."""
+    """``component_min_labels`` holds the gate: a failed one (w < 3, or
+    labels up to 2**24) runs the fine tail's twins (no coarse twin launches)
+    and equals JAX, while the coarse engine itself refuses such a plane; a
+    gate that holds runs the coarse twins; on the CPU no kernel launches."""
     lab = torch.tensor([[3, 0], [3, 4], [0, 4]], dtype=torch.int32)
     _ext.reset_launches()
-    got, rounds = sm.component_min_coarse(lab, 4)  # w = 2
-    assert rounds == 0 and _ext.launches["coarsen_plain"] == 0
+    got, rounds = sm.component_min_labels(lab, max_label=4)  # w = 2
+    assert rounds >= 1 and _ext.launches["bwd_vh_plain"] == rounds and _ext.launches["coarsen_plain"] == 0
     np.testing.assert_array_equal(got.numpy(), np.asarray(jsm.component_min_labels(jnp.asarray(lab.numpy()), use_pallas=False)))
     wide = torch.ones((4, 5), dtype=torch.int32)
-    assert sm.component_min_coarse(wide, 1 << 24)[1] == 0  # labels too wide
-    got, rounds = sm.component_min_coarse(wide, 1)
-    assert rounds >= 1 and _ext.launches["coarse_round_plain"] == rounds
-    assert _ext.launches["coarsen"] == _ext.launches["coarse_round"] == _ext.launches["coarse_broadcast"] == 0
+    wide[2, 3] = 2
+    _ext.reset_launches()
+    got, rounds = sm.component_min_labels(wide, max_label=1 << 24)  # labels too wide
+    assert rounds >= 1 and _ext.launches["fwd_v_plain"] >= 1 and _ext.launches["coarsen_plain"] == 0
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jsm.component_min_labels(jnp.asarray(wide.numpy()), use_pallas=False)))
+    _ext.reset_launches()
+    got, rounds = sm.component_min_labels(wide, max_label=2)
+    assert rounds >= 1 and _ext.launches["coarse_round_plain"] == rounds and _ext.launches["fwd_v_plain"] == 0
+    assert sum(_ext.launches[k] for k in _ext.KERNELS) == 0
     with pytest.raises(ValueError, match="w >= 3"):
         sm.coarsen_plain(lab)
+    with pytest.raises(ValueError, match="w >= 3"):
+        sm.component_min_coarse(lab, 4)
+    with pytest.raises(ValueError, match="below 2\\*\\*24"):
+        sm.component_min_coarse(wide, 1 << 24)
 
 
 @pytest.mark.parametrize("trial", range(12))

@@ -17,6 +17,7 @@ from rustronomy_watershed_tpu_torch.ops import flood_block, pack, priority, rela
 from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
 from rustronomy_watershed_tpu_torch.ops.pipeline import watershed_e2e
 from rustronomy_watershed_tpu_torch.ops.seeds import local_extrema_mask, seed_labels_from_mask
+from torch_fields import serpentine
 
 pytestmark = pytest.mark.cuda
 
@@ -150,11 +151,89 @@ def test_merging_e2e_matches_exact_engine(cuda):
 
 
 def test_failed_coarse_gate_raises_on_cuda(cuda):
-    lab = torch.ones((8, 2), dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sm.component_min_coarse(lab, 1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sm.component_min_coarse(torch.ones((8, 8), dtype=torch.int32, device=cuda), 1 << 24)
+    """The coarse gate fails (w < 3, labels up to 2**24): the coarse engine
+    raises, and the dispatcher runs the fine kernels instead, no twin, with a
+    result equal to the twins' and the oracle's."""
+    narrow = _relaxed_labels((257, 2), seed=4)
+    narrow[::7, 0], narrow[3::11, 1] = 5, 9  # claimed border cells that merge across rows
+    for lab, n_labels in ((narrow, 1 << 20), (_relaxed_labels((130, 257), seed=6), 1 << 24)):
+        with pytest.raises(ValueError):
+            sm.component_min_coarse(lab, n_labels)
+        _ext.reset_launches()
+        got, rounds = sm.component_min_labels(lab, max_label=n_labels)
+        assert _ext.launches["bwd_vh"] == rounds >= 1 and _ext.launches["fwd_v"] == rounds
+        assert _ext.launches["coarsen"] == 0 and sum(_ext.launches[f"{k}_plain"] for k in _ext.KERNELS) == 0
+        want, want_rounds = sm.component_min_fine(lab.cpu())
+        assert want_rounds == rounds
+        _assert_same([got.cpu()], [want])
+        _assert_same([got], [sm.component_min_labels_plain(lab)])
+
+
+def _held(kernel, plain, window=None):
+    """A pass for ``sm._two_pass_rounds`` that runs the kernel and asserts
+    its plane and flag equal the twin's on the same input (the twin runs
+    first: the kernel may write over its input).  ``window`` (the legacy
+    coarse pass 2) maps the round to its h-window."""
+
+    def run(x, k=None, out=None, scratch=None):
+        hw = () if window is None else (window(k),)
+        want = plain(x, *hw)
+        got = kernel(x, *hw, out=out, **({} if scratch is None else {"scratch": scratch}))
+        _assert_same(got, want)
+        return got
+
+    return run
+
+
+# (9001, 3) and (4200, 700): more rows than the 4096 grid rows of the
+# violation stencil and the windowed h-pass, so their row-stride loops run.
+@pytest.mark.parametrize(
+    "shape", [(64, 96), (1023, 1031), (63, 97), (4096, 1), (4096, 2), (1, 5), (9001, 3), (4200, 700), "serpentine"]
+)
+def test_fine_kernels_match_twins(cuda, shape):
+    """Every pass of a full fine tail: planes and flags equal the twins'."""
+    if shape == "serpentine":
+        lab = torch.from_numpy(serpentine()).to(cuda)
+    else:
+        lab = _relaxed_labels(shape, seed=shape[0] + shape[1])
+    got, _ = sm._two_pass_rounds(lab, _held(sm.fwd_v_kernel, sm.fwd_v_plain), _held(sm.bwd_vh_kernel, sm.bwd_vh_plain))
+    _assert_same([got], [sm.component_min_labels_plain(lab)])
+
+
+@pytest.mark.parametrize("h_window", [None, 256, 300])
+@pytest.mark.parametrize("shape", [(64, 96), (1023, 1031), (33, 3), (200, 2000), (8400, 700)])
+def test_legacy_coarse_kernels_match_twins(cuda, shape, h_window):
+    """Every pass of a legacy coarse schedule with one h-window throughout:
+    planes and flags equal the twins'; the fixed point broadcasts to the
+    oracle's labels.  (8400, 700): 4200 coarse rows, past the windowed
+    h-pass's 4096 grid rows."""
+    lab = _relaxed_labels(shape, seed=shape[1], nan=0.03)
+    got, _ = sm._two_pass_rounds(
+        sm.coarsen_kernel(lab), _held(sm.cfwd_v_kernel, sm.cfwd_v_plain),
+        _held(sm.cbwd_vh_kernel, sm.cbwd_vh_plain, lambda k: h_window),
+    )
+    _assert_same([sm.coarse_broadcast_kernel(got, lab)], [sm.component_min_labels_plain(lab)])
+
+
+def test_legacy_schedule_on_cuda(cuda, monkeypatch):
+    lab = _relaxed_labels((512, 640), seed=3)
+    default, _ = sm.component_min_coarse(lab, sm._CVAL)
+    monkeypatch.setattr(sm, "_COARSE_MULTI", False)
+    _ext.reset_launches()
+    got, rounds = sm.component_min_coarse(lab, sm._CVAL)
+    assert _ext.launches["cbwd_vh"] == rounds >= 1 and _ext.launches["coarse_round"] == 0
+    assert sum(_ext.launches[f"{k}_plain"] for k in _ext.KERNELS) == 0
+    _assert_same([got], [default])
+
+
+def test_relax_kernel_matches_twin_at_width_16384(cuda):
+    """The width at which the TPU package stripes (>= 5120): one 2-D-tiled
+    call equals the twin, statistics included."""
+    img = torch.from_numpy(_field((40, 16384), 254, seed=16)).to(cuda)
+    v, key, lab, _ = pack.pack_kernel(img)
+    for stats in (False, True):
+        _assert_same(relax.relax_block_kernel(v, key, lab, 8, stats=stats),
+                     relax.relax_block_plain(v, key, lab, 8, stats=stats))
 
 
 def _flood_state(shape, hi, lvl, seed):

@@ -1,5 +1,5 @@
 """Port parity for the coarse component-min tail (plain twins of
-csrc/coarsen.cu, csrc/coarse_round.cu and csrc/coarse_broadcast.cu) started
+csrc/coarsen.cu, csrc/scan_round.cu and csrc/coarse_broadcast.cu) started
 from the JAX merging path's fixed point, against the JAX coarse engine in
 Pallas interpret mode.  Integer outputs, tolerance 0."""
 

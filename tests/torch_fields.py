@@ -1,0 +1,20 @@
+"""Label planes shared by the port's tests and ``chip_smoke.py``.  NumPy only:
+no JAX, no torch."""
+
+import numpy as np
+
+
+def serpentine(h=48, w=48):
+    """tests/test_merge_fast.py:338: a corridor of full even rows joined
+    alternately at the ends, distinct labels along the way, the minimum deep
+    inside: the component-min tails take many rounds on it."""
+    lab = np.zeros((h, w), np.int32)
+    nxt = 1000
+    for r in range(2, h - 2, 2):
+        lab[r, 2 : w - 2] = nxt
+        nxt += 7
+        if r + 2 < h - 2:
+            lab[r + 1, 2 if (r // 2) % 2 == 0 else w - 3] = nxt
+            nxt += 3
+    lab[h - 4, w // 2] = 5
+    return lab

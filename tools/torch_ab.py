@@ -2,15 +2,15 @@
 """Time the PyTorch port's end-to-end transforms of one or more checkouts,
 in turns, on one NVIDIA GPU.
 
-    python3 tools/torch_ab.py [--profile] DIR [DIR ...]
+    python3 tools/torch_ab.py [--profile] [--side N] DIR [DIR ...]
 
 Each DIR is the root of a checkout of this repository (``.`` for this one);
 name a DIR twice to run it twice, e.g. ``old new new old`` for an A/B on one
 card.  For each DIR in the order given, a fresh process imports the port from
 that checkout (building its kernels there) and times ``watershed_e2e`` on the
-4096^2 fields of ``bench.py``: the uniform u8 field ``default_rng(0)
-.integers(0, 254)`` and the same draw with 10% of its pixels set to 255 (NaN
-dots).  Segmenting on the uniform field; merging on both, where the checkout
+4096^2 fields of ``bench.py`` (N^2 with ``--side N``): the uniform u8 field
+``default_rng(0).integers(0, 254)`` and the same draw with 10% of its pixels
+set to 255 (NaN dots).  Segmenting on the uniform field; merging on both, where the checkout
 serves it.  Median of 9 warm runs, CUDA events around each call (the host's
 flag reads inside).  ``--profile`` also traces 5 runs of each under
 ``torch.profiler``: device busy time per run (the union of the card's kernel,
@@ -27,16 +27,13 @@ import os
 import subprocess
 import sys
 
-SIDE = 4096
-
-
-def _fields():
+def _fields(side: int):
     import numpy as np
 
     rng = np.random.default_rng(0)
-    dense = rng.integers(0, 254, (SIDE, SIDE)).astype(np.uint8)
+    dense = rng.integers(0, 254, (side, side)).astype(np.uint8)
     dots = dense.copy()
-    dots[rng.random((SIDE, SIDE)) < 0.1] = 255
+    dots[rng.random((side, side)) < 0.1] = 255
     return dense, dots
 
 
@@ -55,7 +52,7 @@ def _busy_us(events) -> float:
     return busy
 
 
-def child(profile: bool) -> dict:
+def child(profile: bool, side: int) -> dict:
     import numpy as np
     import torch
 
@@ -64,7 +61,7 @@ def child(profile: bool) -> dict:
 
     dev = torch.device("cuda")
     _ext.lib()
-    dense, dots = (torch.from_numpy(a).to(dev) for a in _fields())
+    dense, dots = (torch.from_numpy(a).to(dev) for a in _fields(side))
     cases = {
         "segmenting": lambda: watershed_e2e(dense, device=dev),
         "merging_dense": lambda: watershed_e2e(dense, merging=True, device=dev),
@@ -80,7 +77,7 @@ def child(profile: bool) -> dict:
         torch.cuda.synchronize()
         return a.elapsed_time(b)
 
-    out = {"checkout": os.getcwd()}
+    out = {"checkout": os.getcwd(), "side": side}
     for name, fn in cases.items():
         try:
             fn()
@@ -92,7 +89,7 @@ def child(profile: bool) -> dict:
         fn()
         counts = {k: v for k, v in _ext.launches.items() if v}
         ms = float(np.median([timed(fn, 1) for _ in range(9)]))
-        res = {"ms": ms, "mpix_s": SIDE * SIDE / ms / 1e3, "launches": counts}
+        res = {"ms": ms, "mpix_s": side * side / ms / 1e3, "launches": counts}
         if profile:
             from torch.profiler import ProfilerActivity, profile as prof_ctx
 
@@ -115,8 +112,13 @@ def child(profile: bool) -> dict:
 def main(argv) -> int:
     profile = "--profile" in argv
     argv = [a for a in argv if a != "--profile"]
+    side = 4096
+    if "--side" in argv:
+        i = argv.index("--side")
+        side = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2 :]
     if argv and argv[0] == "--child":
-        print(json.dumps(child(profile)))
+        print(json.dumps(child(profile, side)))
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
@@ -130,7 +132,7 @@ def main(argv) -> int:
     for d in argv:
         d = os.path.abspath(d)
         env = dict(os.environ, PYTHONPATH=d)
-        cmd = [sys.executable, me, "--child"] + (["--profile"] if profile else [])
+        cmd = [sys.executable, me, "--child", "--side", str(side)] + (["--profile"] if profile else [])
         res = subprocess.run(cmd, cwd=d, env=env, capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stderr[-4000:], file=sys.stderr)

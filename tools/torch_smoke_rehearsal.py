@@ -26,6 +26,9 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CUTS = [
     ('SIDE = 4096', 'SIDE = 256'),
+    ('BIG = 16384', 'BIG = 320'),
+    ('WIDE = (2048, BIG)', 'WIDE = (64, BIG)'),
+    ('TALL = (9001, 700)', 'TALL = (301, 70)'),
     ('(1024, 1024)', '(512, 512)'),
     ('0, 1024, 60', '0, 512, 60'),
     ('integers(1, 1023, (40, 2))', 'integers(1, 511, (40, 2))'),
@@ -41,7 +44,7 @@ CUTS = [
 
 def _fake_kernels():
     from rustronomy_watershed_tpu_torch import _ext
-    from rustronomy_watershed_tpu_torch.ops import flood_block, pack, relax
+    from rustronomy_watershed_tpu_torch.ops import flood_block, pack, pipeline, relax
     from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
 
     def as_kernel(plain, key):
@@ -64,6 +67,12 @@ def _fake_kernels():
     sm.coarsen_kernel = as_kernel(sm.coarsen_plain, "coarsen")
     sm.coarse_round_kernel = as_kernel(sm.coarse_round_plain, "coarse_round")
     sm.coarse_broadcast_kernel = as_kernel(sm.coarse_broadcast_plain, "coarse_broadcast")
+    for name in ("fwd_v", "bwd_vh", "cfwd_v", "cbwd_vh"):
+        setattr(sm, f"{name}_kernel", as_kernel(getattr(sm, f"{name}_plain"), name))
+    # The cut BIG x BIG field keeps the full size's label bound, so that it
+    # takes the fine tail as 16384^2 does.
+    bound = pipeline.max_seed_count
+    pipeline.max_seed_count = lambda shape: 1 << 26 if tuple(shape) == (320, 320) else bound(shape)
     sm._dispatch = lambda kernel, plain, lead: kernel
     flood_block.flood_block_kernel = as_kernel(flood_block.flood_block_plain, "flood")
     flood_block.flood_block = lambda *a, **k: flood_block.flood_block_kernel(*a, **k)
