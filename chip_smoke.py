@@ -44,6 +44,8 @@ WIDE = (2048, BIG)  # 16384-long rows whose labels stay below 2**24 (the coarse 
 # More fine and coarse rows than the 4096 grid rows of the scan kernels'
 # cell launches, so that their row-stride loops run; the h-window binds.
 TALL = (9001, 700)
+# Rows wider than the fine row kernel's shared-memory ring: its chunked route.
+PAST_CAP = (300, 18440)
 
 # The least time the card could take (H100 SXM at 700 W): bytes over
 # 3.35 TB/s, operations over 67 T/s (the peak rate outside the tensor cores,
@@ -576,13 +578,17 @@ def main() -> int:
         f"{SIDE}x2 labels": sparse_labels((SIDE, 2)),
         "serpentine 48^2": to_dev(serpentine()),
         f"tall {TALL[0]}x{TALL[1]} 10% dots": coarse_fields[f"tall {TALL[0]}x{TALL[1]} 10% dots"],
+        f"past the ring {PAST_CAP[0]}x{PAST_CAP[1]} labels": sparse_labels(PAST_CAP),
     }
     fine_err = {"fwd_v": 0, "bwd_vh": 0}
     for label, lab in fine_fields.items():
+        _ext.reset_launches()
         out, rounds = rounds_against_twins(lab, fine_passes, fine_err, label)
+        route = "chunked" if lab.shape[1] > sm._ROW_CAP else "ring"
+        check(_ext.launches[f"bwd_vh_{route}"] == _ext.launches["bwd_vh"] == rounds, f"bwd_vh took the {route} row route on {label}")
         check(torch.equal(out, sm.component_min_labels_plain(lab)), f"fine tail == oracle on {label}")
         print(f"[17 fine] {label}: fwd_v and bwd_vh bit-equal to their twins (planes and flags) "
-              f"over all {rounds} rounds; tail == oracle")
+              f"over all {rounds} rounds, row route {route}; tail == oracle")
 
     # -- 18: the legacy coarse rounds (RWT_COARSE_MULTI=0) against their twins -
     coarse_passes = (("cfwd_v", sm.cfwd_v_kernel, sm.cfwd_v_plain), ("cbwd_vh", sm.cbwd_vh_kernel, sm.cbwd_vh_plain))
@@ -669,6 +675,8 @@ def main() -> int:
                 tail = label == "10% dots"
                 check(counts["merge_tail" if tail else "merge_shortcut"] == 1, f"{BIG}^2 {label} merging route")
                 check((counts["fwd_v"] > 0 and counts["bwd_vh"] > 0) == tail, f"{BIG}^2 {label}: the fine tail ran iff the tail did")
+                check(counts["bwd_vh_ring"] == counts["bwd_vh"] and counts["bwd_vh_chunked"] == 0,
+                      f"{BIG}^2 {label}: bwd_vh took the ring row route")
                 check(counts["coarsen"] == counts["coarse_round"] == counts["cbwd_vh"] == 0, f"{BIG}^2 {label}: no coarse kernel")
                 if tail:
                     merged_e2e16 = got  # equal to the exact engine + oracle
@@ -760,7 +768,35 @@ def main() -> int:
     for kname, (ms, plain_ms) in big_ms.items():
         b_ms, b_by = big_bounds[kname]
         print(f"[19 time] {kname} {BIG}^2: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); gpu={gpu}")
+    # bwd_vh's two launches apart: the column scan and the ring row kernel.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            sm.bwd_vh_kernel(y16, scratch=scratch16)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        for part, key in (("column scan", "vscan_tiles"), ("row kernel", "row_ring")):
+            if key in e.key and e.device_type.name == "CUDA":
+                split[part] = getattr(e, "device_time_total", 0) / 1e3 / 5
+    check(len(split) == 2 and all(t > 0 for t in split.values()), "the profiler saw both launches of bwd_vh")
+    print(f"[19 time] bwd_vh {BIG}^2 per launch (torch.profiler, mean of 5): column scan {split['column scan']:.4f} ms, "
+          f"row kernel {split['row kernel']:.4f} ms; gpu={gpu}")
     del big, exact16, v16, key16, lab16_0, y16, scratch16, lab16, dots16_dev
+
+    # How the fine passes scale with the side, on one label draw per side.
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for side in (SIDE, 2 * SIDE, BIG):
+        lab = torch.randint(1, 1 << 26, (side, side), device=dev, dtype=torch.int32, generator=gen)
+        lab[torch.rand((side, side), device=dev, generator=gen) < 0.1] = 0
+        y = sm.fwd_v_kernel(lab)[0]
+        scratch = torch.empty_like(y)
+        f_ms = median_ms(lambda: sm.fwd_v_kernel(lab), 10)
+        b_ms = median_ms(lambda: sm.bwd_vh_kernel(y, scratch=scratch), 10)
+        print(f"[19 time] {side}^2 random labels (10% unclaimed): fwd_v {f_ms:.4f} ms, bwd_vh {b_ms:.4f} ms, "
+              f"bound {bound(side * side * 8, 0)[0]:.4f} ms each; gpu={gpu}")
+        del lab, y, scratch
 
     # Bytes each function must move at 4096^2 (each input read once, each
     # output written once) and the integer operations it does per cell.

@@ -13,7 +13,10 @@ and its plain-PyTorch twin adds one to the ``*_plain`` entry, so a run can
 show which path it took.  The merging driver also records its route per
 transform: ``merge_shortcut`` (the single-component broadcast) or
 ``merge_tail`` (the component-min tail, coarse or fine); the level sweep's merge phase
-counts its label-table rounds as ``merge_round`` (ops/merge.py).
+counts its label-table rounds as ``merge_round`` (ops/merge.py).  The fine
+``bwd_vh`` kernel also counts the route of its row launch: ``bwd_vh_ring``
+(the shared-memory ring row kernel) or ``bwd_vh_chunked`` (rows wider than
+the ring).
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ launches = {
     "merge_shortcut": 0,
     "merge_tail": 0,
     "merge_round": 0,
+    "bwd_vh_ring": 0,
+    "bwd_vh_chunked": 0,
 }
 
 _lib = None
@@ -145,10 +150,14 @@ def lib() -> ctypes.CDLL:
         L.rwt_coarse_broadcast.restype = I
         L.rwt_flood.argtypes = [P, P, P, P, I, I, I, I, I, P]
         L.rwt_flood.restype = I
-        L.rwt_scan_fwd_v.argtypes = [P, P, P, I, I, I, P]
-        L.rwt_scan_fwd_v.restype = I
-        L.rwt_scan_bwd_vh.argtypes = [P, P, P, P, I, I, I, I, P]
-        L.rwt_scan_bwd_vh.restype = I
+        L.rwt_fine_fwd_v.argtypes = [P, P, P, P, I, I, I, P]
+        L.rwt_fine_fwd_v.restype = I
+        L.rwt_fine_bwd_vh.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P]
+        L.rwt_fine_bwd_vh.restype = I
+        L.rwt_coarse_fwd_v.argtypes = [P, P, P, I, I, P]
+        L.rwt_coarse_fwd_v.restype = I
+        L.rwt_coarse_bwd_vh.argtypes = [P, P, P, P, I, I, I, P]
+        L.rwt_coarse_bwd_vh.restype = I
         L.rwt_error_string.argtypes = [I]
         L.rwt_error_string.restype = ctypes.c_char_p
         _lib = L

@@ -4,19 +4,22 @@
 // Replaces five TPU kernels of rustronomy_watershed_tpu/ops/scan_merge.py:
 //   * `_fwd_v_kernel` / `_bwd_vh_kernel`, the fine tail (launched by
 //     `_call_round_kernel` from `_component_min_pallas` and
-//     `component_min_from_padded`), and their coarse mirrors
-//     `_cfwd_v_kernel` / `_cbwd_vh_kernel`, the legacy rounds of
-//     `component_min_coarse_from_padded` (RWT_COARSE_MULTI=0):
-//       - rwt_scan_fwd_v: the forward vertical segmented min scan; its flag
-//         is "some cell changed";
-//       - rwt_scan_bwd_vh: the backward vertical scan (in -> scratch), the
-//         horizontal run-min (scratch -> out), full length, or for the
-//         coarse plane windowed as the TPU's lane doubling with a limit is
-//         (a cell reaches `reach` = 2^ceil(log2(limit)) - 1 cells each way
-//         within its run, not limit - 1), then the violation stencil over
-//         `out`: its flag is "some unblocked claimed neighbour pair
-//         differs", which certifies the fixed point (scan_merge.py:231-238);
-//         a clean forward pass does not;
+//     `component_min_from_padded`):
+//       - rwt_fine_fwd_v: the forward vertical segmented min scan (0 is a
+//         barrier, border columns 0 and w-1 pass through); its flag is "some
+//         cell changed";
+//       - rwt_fine_bwd_vh: the backward vertical scan (in -> scratch), then
+//         the horizontal run-min (border rows 0 and h-1 pass through) and the
+//         violation stencil over its output (scratch -> out): the flag is
+//         "some claimed neighbour pair across an unblocked edge differs",
+//         which certifies the fixed point (scan_merge.py:231-238); a clean
+//         forward pass does not;
+//   * their coarse mirrors `_cfwd_v_kernel` / `_cbwd_vh_kernel`, the legacy
+//     rounds of `component_min_coarse_from_padded` (RWT_COARSE_MULTI=0):
+//     rwt_coarse_fwd_v and rwt_coarse_bwd_vh, whose h-scan is full length or
+//     windowed as the TPU's lane doubling with a limit is (a cell reaches
+//     `reach` = 2^ceil(log2(limit)) - 1 cells each way within its run, not
+//     limit - 1);
 //   * `_cmulti_kernel` (launched by `_call_multi_kernel`), the default coarse
 //     round: a sequential band grid with Gauss-Seidel chaining, k = 2
 //     sub-iterations per band and a 256-lane h window, all of it tuning for
@@ -25,33 +28,60 @@
 //     (plane -> scratch), then of every row (scratch -> out), counting the
 //     cells that changed; the host stops after a round that changed none
 //     (the change-based certificate of scan_merge.py:1114-1128).
-// The bodies differ only in the cell encoding, so one template serves them:
-//   * fine: a cell is a label, 0 = unclaimed = a scan barrier in every
-//     direction; the vertical passes leave border columns 0 and w-1 as they
-//     were, the horizontal pass leaves border rows 0 and h-1 as they were
-//     (border-border edges never merge);
-//   * coarse: a cell is the packed plane of ops/scan_merge.py (value bits
-//     0..23, 0 = empty; reset bits 24..27 for forward / backward, vertical /
-//     horizontal), the reset bits are kept on write.
-// The TPU kernels walk bands in order with a carry row; here every launch
-// reads one whole plane and writes another, so blocks need no order and each
-// launch equals its plain twin (ops/scan_merge.py) bit for bit.
+// Every launch reads whole planes and writes whole planes, so each entry
+// point equals its plain twin (ops/scan_merge.py) bit for bit.
 //
-// What bounds it: bytes.  A pass reads a plane and writes one (4 B per cell
-// each way); the violation stencil reads it once more.  Design of a scan
-// launch: a block owns 32 columns or 8 rows; each line is cut into 32
-// chunks, one thread per chunk, so a 16384-row plane still has 16 threads
-// per column.  A thread folds its chunk into a (value, reset-seen)
-// aggregate, one thread per line chains the aggregates into each chunk's
-// carry (shared memory), and the thread rescans its chunk from that carry;
-// a backward scan after a forward one reads the forward values back from
-// `out`.  Vertical launches are coalesced (a warp reads 32 neighbouring
-// columns); horizontal ones walk rows at a stride and lean on L1.  The
-// windowed scan walks at most `reach` cells each way from each cell.  Speed
-// work (shared-memory row tiles for the h-pass, fusing the stencil into it,
-// skipping quiet lines, fewer rounds) is left for later.
+// What bounds the fine passes on this card: bytes.  Each launch reads one
+// int32 plane and writes one (1 GiB each way at 16384^2, 0.32 ms each at
+// 3.35 TB/s); the arithmetic is a few integer ops per cell.  So the design
+// is about touching each cell once per launch, in wide coalesced accesses:
+//   * Column scans (`vscan_tiles`, fwd_v and bwd_vh's first launch): tiles
+//     of 128 rows x 128 columns (32 with scalar access when w % 4 != 0),
+//     16 warps x 8 rows, a lane owning 4 columns and loading its 8 rows as
+//     independent 16-byte loads; two blocks per SM.  The tile is read once
+//     into registers; its per-column (min, reset-seen) aggregate goes to a
+//     status buffer and the carry into the tile comes from a decoupled
+//     look-back over the tiles above (aggregates, or an inclusive carry
+//     that ends the walk).  Tile ids come from an atomic counter, so every
+//     tile waited on has started and publishes without waiting: no
+//     deadlock.  In place (fwd_v inside the round loop) only the 16-byte
+//     groups that changed are stored, as the TPU kernel skips unchanged
+//     bands.  What holds it above the bound is the latency chain of a tile
+//     (counter, loads, publish, look-back) with two tiles per SM in flight.
+//   * The row kernel (`row_ring`, bwd_vh's second launch): a block per band
+//     of rows (about one per SM), rows streamed through a ring of three
+//     buffers in dynamic shared memory by 1-D bulk copies (TMA: one thread
+//     issues a row, the next step loads while this one is scanned) and
+//     stored from the ring by bulk copies too, so the load and store units
+//     stay free for the scan.  A step holds as many whole rows as fit
+//     (rows_per_step, so narrow planes do not spend a block on a 2-cell
+//     row); each thread owns 20 contiguous cells (five int4, an odd count:
+//     no bank conflicts).  The run-min is a forward and a backward
+//     segmented scan inside the thread's cells, then one block scan of the
+//     per-thread aggregates gives the carries into the thread's leading
+//     and trailing runs.  The violation stencil is fused: after a run-min
+//     every interior row is constant along its runs, and border rows are
+//     blocked, so only vertical pairs can violate; the row above stays in
+//     the ring (the previous step's output), and each band recomputes its
+//     upper neighbour row once (a shadow row, never stored) instead of
+//     reading another block's output.
+//   * Rows wider than the ring (kRowCap cells) take the chunked route: the
+//     chunked-carry run_min_pass<false,false> below, then the
+//     violations<false> stencil as its own launch.
+// Index arithmetic is size_t: the 16384^2 plane is 1 GiB.
+//
+// The coarse passes (v_pass<true,*>, run_min_pass<true,*>, hwin_pass,
+// violations<true>) are the chunked-carry design: a block owns 32 columns
+// or 8 rows, each line is cut into 32 chunks, one thread per chunk; a
+// thread folds its chunk into a (value, reset-seen) aggregate, one thread
+// per line chains the aggregates into each chunk's carry (shared memory),
+// and the thread rescans its chunk from that carry.  Vertical launches are
+// coalesced; horizontal ones walk rows at a stride and lean on L1.  The
+// windowed scan walks at most `reach` cells each way from each cell.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -307,63 +337,500 @@ violations(const int32_t* __restrict__ p, int32_t* viol, int h, int w) {
   if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(viol, 1);
 }
 
+// -- the fine passes ----------------------------------------------------------
+//
+// A scan element packs a cell's contribution into one int: its value (a
+// label, or kInf for "none") in bits 0..29 and "a segment starts here" in
+// bit 30.  comb(a, b) is the segmented-min operator, a then b in scan order;
+// kInf with bit 30 clear is its identity.
+
+constexpr int kR = 1 << 30;
+constexpr int kVM = kR - 1;
+constexpr int kTileWarps = 16, kWarpRows = 8;
+constexpr int kTileRows = kTileWarps * kWarpRows;  // ops/scan_merge.py _VSCAN_TILE_ROWS
+constexpr int kCells = 20;                          // row kernel: cells per thread
+constexpr int kRing = 3;                            // row kernel: buffers in the ring
+constexpr int kRowCap = 18432;                      // ops/scan_merge.py _ROW_CAP
+
+__device__ __forceinline__ int comb(int a, int b) {
+  return (b & kR) ? b : (min(a & kVM, b) | (a & kR));
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// One directional segmented min scan down every column of the fine plane:
+// in -> out (which may be `in`), border columns kept.  A block scans one
+// tile of kTileRows x (32 * lanes' columns); tiles are numbered in scan
+// order (row of tiles, then column of tiles) by `status[0]`, an atomic
+// counter.  status: [counter, flag per tile, aggregate per tile and column,
+// inclusive carry per tile and column]; the counter and the flags are zero
+// at launch.  `changed` (may be null) gets 1 when some cell changed.
+template <bool kVec, bool kFwd>
+__global__ void __launch_bounds__(32 * kTileWarps, 32 / kTileWarps)
+vscan_tiles(const int32_t* in, int32_t* out, int32_t* changed, int32_t* status, int h, int w, int n_tc) {
+  constexpr int kLane = kVec ? 4 : 1;  // columns per lane
+  constexpr int kTC = 32 * kLane;      // columns per tile
+  __shared__ int s_tile;
+  __shared__ int s_pre[kTileWarps][kTC];  // per warp: aggregate, then exclusive prefix
+  __shared__ int s_carry[kTC];
+  const int n_tiles = gridDim.x;
+  int* flags = status + 1;
+  int* agg = flags + n_tiles;
+  int* incl = agg + (size_t)n_tiles * kTC;
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+  if (t == 0) s_tile = atomicAdd(status, 1);
+  __syncthreads();
+  const int tile = s_tile, ti = tile / n_tc, tj = tile - ti * n_tc;
+  const int c0 = tj * kTC + lane * kLane;
+  const bool inplace = in == out;
+
+  // Logical row l counts in scan order; its plane row is l or h - 1 - l.
+  // A cell outside the plane reads as kInf, the scan's identity; 0 (an
+  // unclaimed cell) restarts the scan with no value.
+  int cell[kWarpRows][kLane];
+#pragma unroll
+  for (int k = 0; k < kWarpRows; ++k) {
+    const int l = ti * kTileRows + wid * kWarpRows + k;
+#pragma unroll
+    for (int j = 0; j < kLane; ++j) cell[k][j] = kInf;
+    if (l < h && c0 < w) {
+      const size_t g = (size_t)(kFwd ? l : h - 1 - l) * w + c0;
+      if constexpr (kVec) {
+        const int4 q = *reinterpret_cast<const int4*>(in + g);
+        cell[k][0] = q.x;
+        cell[k][1] = q.y;
+        cell[k][2] = q.z;
+        cell[k][3] = q.w;
+      } else {
+        cell[k][0] = in[g];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kLane; ++j) {
+    int a = kInf;
+    bool r = false;
+#pragma unroll
+    for (int k = 0; k < kWarpRows; ++k) {
+      const int c = cell[k][j];
+      a = c == 0 ? kInf : min(a, c);
+      r |= c == 0;
+    }
+    s_pre[wid][lane * kLane + j] = a | (r ? kR : 0);
+  }
+  __syncthreads();
+
+  // One thread per column: the warps' exclusive prefixes, the tile's
+  // aggregate, published; then the look-back for the carry into the tile.
+  int tile_agg = kInf;
+  if (t < kTC) {
+    for (int v = 0; v < kTileWarps; ++v) {
+      const int x = s_pre[v][t];
+      s_pre[v][t] = tile_agg;
+      tile_agg = comb(tile_agg, x);
+    }
+    (ti > 0 ? agg : incl)[(size_t)tile * kTC + t] = tile_agg;
+    __threadfence();
+  }
+  __syncthreads();
+  if (t == 0) st_release(flags + tile, ti > 0 ? 1 : 2);
+  if (t < kTC) {
+    int acc = kInf;  // the tiles above this one, combined in scan order
+    if (ti > 0) {
+      for (int k = ti - 1;; --k) {
+        const int pt = k * n_tc + tj;
+        int f;
+        while ((f = ld_acquire(flags + pt)) == 0) {
+        }
+        acc = comb(__ldcg((f == 2 ? incl : agg) + (size_t)pt * kTC + t), acc);
+        if (f == 2) break;
+      }
+      incl[(size_t)tile * kTC + t] = comb(acc, tile_agg);
+      __threadfence();
+    }
+    s_carry[t] = acc;
+  }
+  __syncthreads();
+  if (t == 0 && ti > 0) st_release(flags + tile, 2);
+
+  int f[kLane];
+#pragma unroll
+  for (int j = 0; j < kLane; ++j) f[j] = comb(s_carry[lane * kLane + j], s_pre[wid][lane * kLane + j]) & kVM;
+  bool ch = false;
+#pragma unroll
+  for (int k = 0; k < kWarpRows; ++k) {
+    const int l = ti * kTileRows + wid * kWarpRows + k;
+    if (l >= h || c0 >= w) continue;
+    int o[kLane];
+    bool diff = false;
+#pragma unroll
+    for (int j = 0; j < kLane; ++j) {
+      const int c = cell[k][j], col = c0 + j;
+      f[j] = c == 0 ? kInf : min(f[j], c);
+      o[j] = (c == 0 || col == 0 || col == w - 1) ? c : f[j];
+      diff |= o[j] != c;
+    }
+    ch |= diff;
+    if (!inplace || diff) {
+      const size_t g = (size_t)(kFwd ? l : h - 1 - l) * w + c0;
+      if constexpr (kVec) {
+        *reinterpret_cast<int4*>(out + g) = make_int4(o[0], o[1], o[2], o[3]);
+      } else {
+        out[g] = o[0];
+      }
+    }
+  }
+  if (changed != nullptr && __syncthreads_or(ch) && t == 0) atomicOr(changed, 1);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(int* s, const int32_t* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(s)), "l"(g) : "memory");
+}
+
+// 1-D bulk copies (TMA): global -> shared completing on an mbarrier, and
+// shared -> global in a bulk group.  Addresses 16-byte aligned, sizes a
+// multiple of 16.
+__device__ __forceinline__ void bulk_load(int* s, const int32_t* g, unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(smem_addr(s)),
+      "l"(g), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(int32_t* g, const int* s, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(g), "r"(smem_addr(s)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT_%=:\n mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n @!p bra WAIT_%=;\n}" ::"r"(
+          smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Which int of its 16-byte line a pointer addresses.
+__device__ __forceinline__ int phase_of(const int32_t* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// The fine horizontal run-min (border rows kept) fused with the vertical
+// half of the violation stencil: scratch `in` -> `out`, which must not
+// alias.  Block b owns rows [b * band_rows, +band_rows) and walks them from
+// the row above its band (the shadow row: computed for the stencil, not
+// stored) in steps of at most `rows_per_step` whole rows.  A step's span of
+// cells lies in ring buffer s % 3 at logical cell `phase + i`, so that its
+// 16-byte lines match the plane's; thread t owns logical cells [20t, 20t+20).
+// `viol` gets 1 when a claimed vertical pair off the border columns differs.
+__global__ void __launch_bounds__(1024)
+row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* viol, int h, int w,
+         int rows_per_step, int band_rows) {
+  extern __shared__ int4 ring4[];
+  int* ring = reinterpret_cast<int*>(ring4);
+  __shared__ int s_wf[32], s_wb[32];
+  __shared__ uint64_t s_bar[kRing];
+  const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31, wid = tid >> 5, nw = T >> 5;
+  const int L = T * kCells;  // cells of one buffer
+  const int G = rows_per_step;
+  const int r0 = blockIdx.x * band_rows, r_end = min(h, r0 + band_rows);
+  const int rs = r0 > 0 ? r0 - 1 : 0;
+  const int n_steps = (r_end - rs + G - 1) / G;
+
+  // Thread 0 fills buffer s % 3 for step s: the 16-byte-aligned body by
+  // one bulk copy on the buffer's mbarrier, the ragged ends (at most three
+  // cells each) by cp.async, first waiting until the bulk store that last
+  // read the buffer (step s - 3) is done with it.
+  auto issue = [&](int s) {
+    const int a = rs + s * G, S = min(G, r_end - a) * w;
+    const int32_t* src = in + (size_t)a * w;
+    const int ph = phase_of(src);
+    int* dst = ring + (s % kRing) * L + ph;
+    const int hd = min(S, (4 - ph) & 3), nq = (S - hd) >> 2;
+    asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+    for (int i = 0; i < hd; ++i) cp_async4(dst + i, src + i);
+    for (int i = hd + 4 * nq; i < S; ++i) cp_async4(dst + i, src + i);
+    mbar_expect(&s_bar[s % kRing], 16u * nq);
+    if (nq > 0) bulk_load(dst + hd, src + hd, 16u * nq, &s_bar[s % kRing]);
+  };
+
+  if (tid == 0) {
+    for (int b = 0; b < kRing; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&s_bar[b])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    issue(0);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  __syncthreads();
+  bool bad = false;
+  for (int s = 0; s < n_steps; ++s) {
+    if (tid == 0 && s + 1 < n_steps) issue(s + 1);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    mbar_wait(&s_bar[s % kRing], (s / kRing) & 1);
+    __syncthreads();
+    const int a = rs + s * G, S = min(G, r_end - a) * w;
+    const int ph = phase_of(in + (size_t)a * w);
+    int* buf = ring + (s % kRing) * L;
+
+    // The owned cells as scan values: a label, or kInf for an unclaimed
+    // cell or one outside the span.  Masks, bit k for cell k: inside the
+    // span, first / last of its row, on a border row (kept).  Cells before
+    // the span start at negative columns.
+    const int i0 = tid * kCells - ph;
+    unsigned m_in, m_first, m_last, m_keep;
+    if (G == 1) {  // the span is row `a`
+      const int lo_k = max(0, -i0), hi_k = min(kCells, S - i0);
+      m_in = hi_k > lo_k ? ((1u << hi_k) - 1u) & ~((1u << lo_k) - 1u) : 0u;
+      m_first = (i0 <= 0 && -i0 < kCells) ? 1u << -i0 : 0u;
+      m_last = (S - 1 - i0 >= 0 && S - 1 - i0 < kCells) ? 1u << (S - 1 - i0) : 0u;
+      m_keep = (a == 0 || a == h - 1) ? m_in : 0u;
+    } else {
+      m_in = m_first = m_last = m_keep = 0;
+      int col = i0, row = a;
+      if (i0 > 0) {
+        row = a + i0 / w;
+        col = i0 % w;
+      }
+#pragma unroll
+      for (int k = 0; k < kCells; ++k) {
+        if (i0 + k >= 0 && i0 + k < S) {
+          m_in |= 1u << k;
+          if (col == 0) m_first |= 1u << k;
+          if (col == w - 1) m_last |= 1u << k;
+          if (row == 0 || row == h - 1) m_keep |= 1u << k;
+        }
+        if (++col == w) {
+          col = 0;
+          ++row;
+        }
+      }
+    }
+    int v[kCells], F[kCells];
+    const int4* own = reinterpret_cast<const int4*>(buf) + tid * (kCells / 4);
+#pragma unroll
+    for (int q = 0; q < kCells / 4; ++q) {
+      const int4 x = own[q];
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+    // The run-min inside the thread's cells: a forward scan, then a backward
+    // one folded into min(forward, backward).  Segments restart at an
+    // unclaimed cell (kInf from here on, as cells outside the span) and at a
+    // row's first (forward) or last (backward) cell.  Most threads hold 20
+    // cells of one row's inside: `plain` drops the masks from their loops.
+    unsigned m_inf = 0, rf, rb;
+    int af, ab;
+    auto local = [&](auto plain_tag) {
+      constexpr bool kPlain = decltype(plain_tag)::value;
+#pragma unroll
+      for (int k = 0; k < kCells; ++k) {
+        if (v[k] == 0 || (!kPlain && !((m_in >> k) & 1))) v[k] = kInf;
+        if (v[k] == kInf) m_inf |= 1u << k;
+      }
+      rf = kPlain ? m_inf : m_inf | m_first;
+      rb = kPlain ? m_inf : m_inf | m_last;
+      int f = kInf, b = kInf;
+#pragma unroll
+      for (int k = 0; k < kCells; ++k) {
+        f = ((rf >> k) & 1) ? v[k] : min(f, v[k]);
+        F[k] = f;
+      }
+#pragma unroll
+      for (int k = kCells - 1; k >= 0; --k) {
+        b = ((rb >> k) & 1) ? v[k] : min(b, v[k]);
+        F[k] = min(F[k], b);
+      }
+      af = f | (rf ? kR : 0);
+      ab = b | (rb ? kR : 0);
+    };
+    if (m_in == (1u << kCells) - 1u && (m_first | m_last) == 0) {
+      local(std::true_type{});
+    } else {
+      local(std::false_type{});
+    }
+
+    // Block scans of the (value, restarted) aggregates: forward over the
+    // threads in order, backward in reverse.
+    int xf = af, xb = ab;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int yf = __shfl_up_sync(0xffffffffu, xf, d);
+      const int yb = __shfl_down_sync(0xffffffffu, xb, d);
+      if (lane >= d) xf = comb(yf, xf);
+      if (lane + d < 32) xb = comb(yb, xb);
+    }
+    int ef = __shfl_up_sync(0xffffffffu, xf, 1), eb = __shfl_down_sync(0xffffffffu, xb, 1);
+    if (lane == 0) ef = kInf;
+    if (lane == 31) eb = kInf;
+    if (lane == 31) s_wf[wid] = xf;
+    if (lane == 0) s_wb[wid] = xb;
+    __syncthreads();
+    if (wid == 0) {
+      int pf = lane < nw ? s_wf[lane] : kInf, pb = lane < nw ? s_wb[lane] : kInf;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int yf = __shfl_up_sync(0xffffffffu, pf, d);
+        const int yb = __shfl_down_sync(0xffffffffu, pb, d);
+        if (lane >= d) pf = comb(yf, pf);
+        if (lane + d < 32) pb = comb(yb, pb);
+      }
+      int qf = __shfl_up_sync(0xffffffffu, pf, 1), qb = __shfl_down_sync(0xffffffffu, pb, 1);
+      if (lane == 0) qf = kInf;
+      if (lane == 31) qb = kInf;
+      if (lane < nw) {
+        s_wf[lane] = qf;
+        s_wb[lane] = qb;
+      }
+    }
+    __syncthreads();
+    // The thread's leading run (before its first forward restart) continues
+    // the run of the threads before it; its trailing run (after its last
+    // backward restart) that of the threads after it.
+    const int cf = comb(s_wf[wid], ef) & kVM, cb = comb(s_wb[wid], eb) & kVM;
+    const unsigned lead = rf ? (rf & -rf) - 1u : ~0u;
+    const unsigned trail = rb ? ~((2u << (31 - __clz(rb))) - 1u) : ~0u;
+#pragma unroll
+    for (int k = 0; k < kCells; ++k) {
+      const int o = __vimin3_s32(F[k], ((lead >> k) & 1) ? cf : kInf, ((trail >> k) & 1) ? cb : kInf);
+      F[k] = ((m_inf >> k) & 1) ? 0 : (((m_keep >> k) & 1) ? v[k] : o);
+    }
+    int4* mine = reinterpret_cast<int4*>(buf) + tid * (kCells / 4);
+#pragma unroll
+    for (int q = 0; q < kCells / 4; ++q) mine[q] = make_int4(F[4 * q], F[4 * q + 1], F[4 * q + 2], F[4 * q + 3]);
+
+    const int lo = (s == 0 && r0 > 0) ? w : 0;  // the shadow row is not stored
+    int32_t* dst = out + (size_t)a * w;
+    const int* cur = buf + ph;
+    const int ph_prev = s > 0 ? phase_of(in + (size_t)(a - G) * w) : ph;
+    if (G == 1 && ph_prev == ph) {
+      // One row per step, aligned alike in this buffer and the previous
+      // one: each thread checks its own cells against the row above.
+      if (s > 0) {
+        const int4* up = reinterpret_cast<const int4*>(ring + ((s + kRing - 1) % kRing) * L) + tid * (kCells / 4);
+        const unsigned inner = m_in & ~(m_first | m_last);
+#pragma unroll
+        for (int q = 0; q < kCells / 4; ++q) {
+          const int4 u = up[q];
+          const int us[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int k = 4 * q + j;
+            bad |= ((inner >> k) & 1) && min(F[k], us[j]) > 0 && F[k] != us[j];
+          }
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+    } else {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+      // Vertical pairs (r-1, r) for the rows this band owns: the first row
+      // of step 0 is row 0 or the shadow row, whose pair belongs elsewhere.
+      // The row above a step's first row ends the previous (full) step.
+      const int* prev = s > 0 ? ring + ((s + kRing - 1) % kRing) * L + ph_prev + G * w : cur;
+      for (int i = (s == 0 ? w : 0) + tid; i < S; i += T) {
+        const int col = G == 1 ? i : i % w;
+        if (col == 0 || col == w - 1) continue;
+        const int o = cur[i], u = i >= w ? cur[i - w] : prev[i - w];
+        bad |= o > 0 && u > 0 && o != u;
+      }
+      __syncthreads();  // the previous buffer is free for the next load
+    }
+    // Store the step's rows (not the shadow row): one bulk copy of the
+    // 16-byte-aligned body where the output's lines match the ring's, the
+    // ends by threads.
+    if (phase_of(dst) == ph) {
+      const int hd = min(S, lo + ((4 - ((ph + lo) & 3)) & 3)), nq = (S - hd) >> 2;
+      if (tid == 0) {
+        if (nq > 0) bulk_store(dst + hd, cur + hd, 16u * nq);
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      }
+      if (tid < hd - lo) dst[lo + tid] = cur[lo + tid];
+      if (tid < S - hd - 4 * nq) dst[hd + 4 * nq + tid] = cur[hd + 4 * nq + tid];
+    } else {
+      if (tid == 0) asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      for (int i = lo + tid; i < S; i += T) dst[i] = cur[i];
+    }
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  if (__syncthreads_or(bad) && tid == 0) atomicOr(viol, 1);
+}
+
 dim3 cell_grid(int h, int w) {
   return dim3((w + 255) / 256, h < 4096 ? h : 4096);
 }
 
-template <bool kCoarse>
-int fwd_v(const int32_t* in, int32_t* out, int32_t* flag, int h, int w,
-          cudaStream_t st) {
-  v_pass<kCoarse, true><<<(w + 31) / 32, dim3(32, kChunks), 0, st>>>(
-      in, out, flag, h, w);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kCoarse>
-int bwd_vh(const int32_t* in, int32_t* scratch, int32_t* out, int32_t* flag,
-           int h, int w, int reach, cudaStream_t st) {
-  v_pass<kCoarse, false><<<(w + 31) / 32, dim3(32, kChunks), 0, st>>>(
-      in, scratch, nullptr, h, w);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (kCoarse && reach >= 0 && reach < w - 1) {
-    hwin_pass<<<cell_grid(h, w), 256, 0, st>>>(scratch, out, h, w, reach);
+// The fine column scan: zero the status counter and flags, then one block
+// per tile.  `vec` asks for 16-byte access (w % 4 == 0, both planes 16-byte
+// aligned; refused otherwise).
+template <bool kFwd>
+cudaError_t vscan(const int32_t* in, int32_t* out, int32_t* changed, int32_t* status, int h, int w,
+                  int vec, cudaStream_t st) {
+  const int tc = vec ? 128 : 32;
+  const int n_tc = (w + tc - 1) / tc;
+  const long long n_tiles = (long long)((h + kTileRows - 1) / kTileRows) * n_tc;
+  if (n_tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  if (vec && (w % 4 != 0 || reinterpret_cast<uintptr_t>(in) % 16 != 0 ||
+              reinterpret_cast<uintptr_t>(out) % 16 != 0))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(status, 0, (size_t)(1 + n_tiles) * sizeof(int32_t), st);
+  if (e != cudaSuccess) return e;
+  if (vec) {
+    vscan_tiles<true, kFwd><<<(unsigned)n_tiles, 32 * kTileWarps, 0, st>>>(in, out, changed, status, h, w, n_tc);
   } else {
-    run_min_pass<kCoarse, false><<<(h + 7) / 8, dim3(kChunks, 8), 0, st>>>(
-        scratch, out, nullptr, h, w);
+    vscan_tiles<false, kFwd><<<(unsigned)n_tiles, 32 * kTileWarps, 0, st>>>(in, out, changed, status, h, w, n_tc);
   }
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  violations<kCoarse><<<cell_grid(h, w), 256, 0, st>>>(out, flag, h, w);
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// in, out: (h, w) int32 planes, fine labels (coarse == 0) or packed coarse
-// cells (coarse != 0); `out` may be `in`.  flag: one int32, zeroed here, then
-// 1 when some cell changed.  Launches on `stream`, does not synchronise,
-// returns cudaGetLastError().
-extern "C" int rwt_scan_fwd_v(const void* in, void* out, void* flag, int h,
-                              int w, int coarse, void* stream) {
+// in, out: (h, w) int32 fine label planes; `out` may be `in`.  flag: one
+// int32, zeroed here, then 1 when some cell changed.  status: the column
+// scan's status buffer, 1 + n_tiles + 2 * n_tiles * tile_cols int32
+// (ops/scan_merge.py vscan_plan), of which the first 1 + n_tiles are zeroed
+// here.  Launches on `stream`, does not synchronise, returns
+// cudaGetLastError().
+extern "C" int rwt_fine_fwd_v(const void* in, void* out, void* flag, void* status, int h, int w,
+                              int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(flag, 0, sizeof(int32_t), st);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (h == 0 || w == 0) return 0;
-  const int32_t* i = static_cast<const int32_t*>(in);
-  int32_t* o = static_cast<int32_t*>(out);
-  int32_t* f = static_cast<int32_t*>(flag);
-  return coarse ? fwd_v<true>(i, o, f, h, w, st) : fwd_v<false>(i, o, f, h, w, st);
+  return static_cast<int>(vscan<true>(static_cast<const int32_t*>(in), static_cast<int32_t*>(out),
+                                      static_cast<int32_t*>(flag), static_cast<int32_t*>(status), h, w,
+                                      vec, st));
 }
 
-// in, scratch, out: (h, w) int32 planes as above; `out` may be `in`,
-// `scratch` aliases neither.  reach: the coarse horizontal window (cells
-// each way), or < 0 for full length; the fine pass ignores it.  flag: one
-// int32, zeroed here, then 1 when the output violates the fixed point.
-// Launches three kernels on `stream`, does not synchronise, returns
-// cudaGetLastError().
-extern "C" int rwt_scan_bwd_vh(const void* in, void* scratch, void* out,
-                               void* flag, int h, int w, int coarse, int reach,
+// in, scratch, out: (h, w) int32 fine label planes; `out` may be `in`,
+// `scratch` aliases neither.  flag: one int32, zeroed here, then 1 when the
+// output violates the fixed point.  status and vec: as for rwt_fine_fwd_v
+// (vec for `in` and `scratch`).  The row plan (ops/scan_merge.py row_plan):
+// `threads` > 0 runs the ring row kernel with `rows_per_step` rows per step,
+// a block per `band_rows` rows and `smem` bytes of ring; `threads` == 0
+// (rows wider than the ring) the chunked run-min and the stencil launch.
+// Launches on `stream`, does not synchronise, returns cudaGetLastError().
+extern "C" int rwt_fine_bwd_vh(const void* in, void* scratch, void* out, void* flag, void* status, int h,
+                               int w, int vec, int rows_per_step, int band_rows, int threads, int smem,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(flag, 0, sizeof(int32_t), st);
@@ -373,8 +840,78 @@ extern "C" int rwt_scan_bwd_vh(const void* in, void* scratch, void* out,
   int32_t* s = static_cast<int32_t*>(scratch);
   int32_t* o = static_cast<int32_t*>(out);
   int32_t* f = static_cast<int32_t*>(flag);
-  return coarse ? bwd_vh<true>(i, s, o, f, h, w, reach, st)
-                : bwd_vh<false>(i, s, o, f, h, w, reach, st);
+  if (threads == 0) {
+    if (w <= kRowCap) return static_cast<int>(cudaErrorInvalidValue);
+  } else if (w > kRowCap || threads % 32 != 0 || threads > 1024 || rows_per_step < 1 || band_rows < 1 ||
+             (long long)rows_per_step * w + 3 > (long long)threads * kCells ||
+             smem != kRing * threads * kCells * 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  e = vscan<false>(i, s, nullptr, static_cast<int32_t*>(status), h, w, vec, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (threads == 0) {
+    run_min_pass<false, false><<<(h + 7) / 8, dim3(kChunks, 8), 0, st>>>(s, o, nullptr, h, w);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    violations<false><<<cell_grid(h, w), 256, 0, st>>>(o, f, h, w);
+    return static_cast<int>(cudaGetLastError());
+  }
+  e = cudaFuncSetAttribute(row_ring, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  row_ring<<<(h + band_rows - 1) / band_rows, threads, smem, st>>>(s, o, f, h, w, rows_per_step, band_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+int coarse_fwd_v(const int32_t* in, int32_t* out, int32_t* flag, int h, int w, cudaStream_t st) {
+  v_pass<true, true><<<(w + 31) / 32, dim3(32, kChunks), 0, st>>>(in, out, flag, h, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int coarse_bwd_vh(const int32_t* in, int32_t* scratch, int32_t* out, int32_t* flag, int h, int w, int reach,
+                  cudaStream_t st) {
+  v_pass<true, false><<<(w + 31) / 32, dim3(32, kChunks), 0, st>>>(in, scratch, nullptr, h, w);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (reach >= 0 && reach < w - 1) {
+    hwin_pass<<<cell_grid(h, w), 256, 0, st>>>(scratch, out, h, w, reach);
+  } else {
+    run_min_pass<true, false><<<(h + 7) / 8, dim3(kChunks, 8), 0, st>>>(scratch, out, nullptr, h, w);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  violations<true><<<cell_grid(h, w), 256, 0, st>>>(out, flag, h, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// in, out: (h, w) int32 packed coarse planes; `out` may be `in`.  flag: one
+// int32, zeroed here, then 1 when some cell changed.  Launches on `stream`,
+// does not synchronise, returns cudaGetLastError().
+extern "C" int rwt_coarse_fwd_v(const void* in, void* out, void* flag, int h, int w, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(flag, 0, sizeof(int32_t), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (h == 0 || w == 0) return 0;
+  return coarse_fwd_v(static_cast<const int32_t*>(in), static_cast<int32_t*>(out),
+                      static_cast<int32_t*>(flag), h, w, st);
+}
+
+// in, scratch, out: (h, w) int32 packed coarse planes; `out` may be `in`,
+// `scratch` aliases neither.  reach: the horizontal window (cells each way),
+// or < 0 for full length.  flag: one int32, zeroed here, then 1 when the
+// output violates the fixed point.  Launches three kernels on `stream`, does
+// not synchronise, returns cudaGetLastError().
+extern "C" int rwt_coarse_bwd_vh(const void* in, void* scratch, void* out, void* flag, int h, int w,
+                                 int reach, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(flag, 0, sizeof(int32_t), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (h == 0 || w == 0) return 0;
+  return coarse_bwd_vh(static_cast<const int32_t*>(in), static_cast<int32_t*>(scratch),
+                       static_cast<int32_t*>(out), static_cast<int32_t*>(flag), h, w, reach, st);
 }
 
 // c, scratch, out: (hc, w) int32 packed coarse planes; `out` may be `c`,

@@ -357,19 +357,29 @@ def coarse_broadcast(c, lab):
 # -- round passes (csrc/scan_round.cu) -----------------------------------------
 
 
+def _fine_vertical_violations(out):
+    """The vertical half of the fine witness: some claimed vertical pair off
+    the border columns holds two labels.  On ``bwd_vh``'s output it is the
+    whole witness (every interior row is constant along its runs after the
+    horizontal run-min, and border rows are blocked), so the kernel checks
+    only this half, fused into its row launch."""
+    cl = out > 0
+    v = (out[1:] != out[:-1]) & cl[1:] & cl[:-1]
+    v[:, 0] = False
+    v[:, -1] = False
+    return v.any()
+
+
 def _fine_violations(out):
     """The fine fixed-point witness (scan_merge.py:294-330) over a whole
     plane: some claimed 4-neighbour pair holds two labels across an
     unblocked edge (vertical pairs off the border columns, horizontal pairs
     off the border rows)."""
     cl = out > 0
-    v = (out[1:] != out[:-1]) & cl[1:] & cl[:-1]
-    v[:, 0] = False
-    v[:, -1] = False
     hz = (out[:, 1:] != out[:, :-1]) & cl[:, 1:] & cl[:, :-1]
     hz[0] = False
     hz[-1] = False
-    return v.any() | hz.any()
+    return _fine_vertical_violations(out) | hz.any()
 
 
 def _coarse_violations(c, out):
@@ -438,50 +448,131 @@ def cbwd_vh_plain(c, h_window=None, *, out=None, scratch=None):
     return _into(out, (c & ~_CVAL) | o), _flag(_coarse_violations(c, o))
 
 
-def _fwd_kernel(x, out, coarse: int, name: str):
+# The fine kernels' launch plans, computed here so that the CPU tests can
+# check them; csrc/scan_round.cu refuses a plan that does not fit.
+_VSCAN_TILE_ROWS = 128  # kTileRows: 16 warps x 8 rows
+_ROW_CAP = 18432  # kRowCap: the widest row the ring row kernel takes
+_ROW_CELLS = 20  # kCells: cells a row-kernel thread owns
+_ROW_RING = 3  # kRing: row buffers in shared memory
+_MIN_BAND = 32  # rows per block at least, so the shadow row costs < ~3%
+
+
+def vscan_plan(h: int, w: int, vec: bool) -> dict:
+    """Tiles of the fine column scan: ``tile_rows`` x ``tile_cols`` (128
+    columns with 16-byte access, 32 without), ``n_tiles`` of them, and the
+    status buffer's ``status_ints`` (counter, one flag per tile, aggregate
+    and inclusive carry per tile and column)."""
+    tile_cols = 128 if vec else 32
+    n_tiles = -(-h // _VSCAN_TILE_ROWS) * -(-w // tile_cols)
+    return {
+        "tile_rows": _VSCAN_TILE_ROWS, "tile_cols": tile_cols, "n_tiles": n_tiles,
+        "status_ints": 1 + n_tiles + 2 * n_tiles * tile_cols,
+    }
+
+
+def row_plan(h: int, w: int, n_sm: int) -> dict:
+    """The fine row launch of ``bwd_vh``: ``route`` ``"ring"`` (rows of at
+    most ``_ROW_CAP`` cells) with ``rows_per_step`` whole rows per ring
+    buffer, a block per ``band_rows`` rows (about one band per SM, at least
+    ``_MIN_BAND`` rows and one step), ``threads`` per block and ``smem``
+    bytes of ring; or ``"chunked"`` for wider rows."""
+    if w > _ROW_CAP:
+        return {"route": "chunked", "rows_per_step": 0, "band_rows": 0, "n_bands": 0, "threads": 0, "smem": 0}
+    g = min(h, _ROW_CAP // w)
+    band = max(-(-h // n_sm), _MIN_BAND, g)
+    owners = -(-(g * w + 3) // _ROW_CELLS)  # a step's cells, up to 3 before its first 16-byte line
+    threads = 32 * -(-owners // 32)
+    return {
+        "route": "ring", "rows_per_step": g, "band_rows": band, "n_bands": -(-h // band),
+        "threads": threads, "smem": _ROW_RING * threads * _ROW_CELLS * 4,
+    }
+
+
+_SM_COUNT: dict = {}
+
+
+def _sm_count(dev) -> int:
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SM_COUNT[dev]
+
+
+def _vec(w: int, *planes) -> bool:
+    return w % 4 == 0 and all(p.data_ptr() % 16 == 0 for p in planes)
+
+
+def _flag_on(x):
+    return torch.empty((1,), dtype=torch.int32, device=x.device)
+
+
+def _status(h: int, w: int, vec: bool, dev):
+    return torch.empty((vscan_plan(h, w, vec)["status_ints"],), dtype=torch.int32, device=dev)
+
+
+def fwd_v_kernel(x, *, out=None):
+    """Launch the fine forward pass of csrc/scan_round.cu (the tiled column
+    scan with a decoupled look-back); ``out`` may be ``x`` itself."""
     out = torch.empty_like(x) if out is None else out
     _check_cuda_planes(x, out)
     if x.shape != out.shape:
         raise ValueError("scan round planes must share one shape")
-    flag = torch.empty((1,), dtype=torch.int32, device=x.device)
     h, w = x.shape
-    err = _ext.lib().rwt_scan_fwd_v(x.data_ptr(), out.data_ptr(), flag.data_ptr(), h, w, coarse, _ext.stream_ptr(x))
-    _ext.check(err, f"rwt_scan_fwd_v ({name})")
-    _ext.launches[name] += 1
-    return out, flag
-
-
-def _bwd_kernel(x, out, scratch, coarse: int, reach: int, name: str):
-    out, scratch = _round_planes(x, out, scratch)
-    flag = torch.empty((1,), dtype=torch.int32, device=x.device)
-    h, w = x.shape
-    err = _ext.lib().rwt_scan_bwd_vh(
-        x.data_ptr(), scratch.data_ptr(), out.data_ptr(), flag.data_ptr(), h, w, coarse, reach,
-        _ext.stream_ptr(x),
+    vec = _vec(w, x, out)
+    flag = _flag_on(x)
+    err = _ext.lib().rwt_fine_fwd_v(
+        x.data_ptr(), out.data_ptr(), flag.data_ptr(), _status(h, w, vec, x.device).data_ptr(), h, w,
+        int(vec), _ext.stream_ptr(x),
     )
-    _ext.check(err, f"rwt_scan_bwd_vh ({name})")
-    _ext.launches[name] += 1
+    _ext.check(err, "rwt_fine_fwd_v")
+    _ext.launches["fwd_v"] += 1
     return out, flag
-
-
-def fwd_v_kernel(x, *, out=None):
-    """Launch the fine forward pass of csrc/scan_round.cu; ``out`` may be
-    ``x`` itself."""
-    return _fwd_kernel(x, out, 0, "fwd_v")
 
 
 def bwd_vh_kernel(y, *, out=None, scratch=None):
-    """Launch the fine pass 2 of csrc/scan_round.cu: ``y`` -> ``scratch``
-    -> ``out`` (which may be ``y``)."""
-    return _bwd_kernel(y, out, scratch, 0, -1, "bwd_vh")
+    """Launch the fine pass 2 of csrc/scan_round.cu: the column scan ``y`` ->
+    ``scratch``, then the row run-min with the violation stencil fused
+    (``scratch`` -> ``out``, which may be ``y``) on the route ``row_plan``
+    picks, counted as ``bwd_vh_ring`` or ``bwd_vh_chunked``."""
+    out, scratch = _round_planes(y, out, scratch)
+    h, w = y.shape
+    vec = _vec(w, y, scratch)
+    plan = row_plan(h, w, _sm_count(y.device))
+    flag = _flag_on(y)
+    err = _ext.lib().rwt_fine_bwd_vh(
+        y.data_ptr(), scratch.data_ptr(), out.data_ptr(), flag.data_ptr(),
+        _status(h, w, vec, y.device).data_ptr(), h, w, int(vec), plan["rows_per_step"],
+        plan["band_rows"], plan["threads"], plan["smem"], _ext.stream_ptr(y),
+    )
+    _ext.check(err, "rwt_fine_bwd_vh")
+    _ext.launches["bwd_vh"] += 1
+    _ext.launches[f"bwd_vh_{plan['route']}"] += 1
+    return out, flag
 
 
 def cfwd_v_kernel(c, *, out=None):
-    return _fwd_kernel(c, out, 1, "cfwd_v")
+    out = torch.empty_like(c) if out is None else out
+    _check_cuda_planes(c, out)
+    if c.shape != out.shape:
+        raise ValueError("scan round planes must share one shape")
+    flag = _flag_on(c)
+    hc, w = c.shape
+    err = _ext.lib().rwt_coarse_fwd_v(c.data_ptr(), out.data_ptr(), flag.data_ptr(), hc, w, _ext.stream_ptr(c))
+    _ext.check(err, "rwt_coarse_fwd_v")
+    _ext.launches["cfwd_v"] += 1
+    return out, flag
 
 
 def cbwd_vh_kernel(c, h_window=None, *, out=None, scratch=None):
-    return _bwd_kernel(c, out, scratch, 1, _reach(c.shape[1], h_window), "cbwd_vh")
+    out, scratch = _round_planes(c, out, scratch)
+    flag = _flag_on(c)
+    hc, w = c.shape
+    err = _ext.lib().rwt_coarse_bwd_vh(
+        c.data_ptr(), scratch.data_ptr(), out.data_ptr(), flag.data_ptr(), hc, w, _reach(w, h_window),
+        _ext.stream_ptr(c),
+    )
+    _ext.check(err, "rwt_coarse_bwd_vh")
+    _ext.launches["cbwd_vh"] += 1
+    return out, flag
 
 
 def fwd_v(x, *, out=None):

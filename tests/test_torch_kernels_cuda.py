@@ -275,3 +275,91 @@ def test_flood_kernel_refuses_aliased_output(cuda):
     img, lab = _flood_state((16, 16), 9, 3, seed=0)
     with pytest.raises(ValueError, match="alias"):
         flood_block.flood_block(img, lab, 3, 4, out=lab)
+
+
+def _fine_labels(shape, kind, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "zero":
+        return np.zeros(shape, np.int32)
+    lab = rng.integers(1, 1 << 26, shape).astype(np.int32)
+    if kind == "claimed":  # every cell claimed: one run per line, one component
+        return lab
+    return np.where(rng.random(shape) < 0.3, 0, lab).astype(np.int32)
+
+
+def _row_route(shape):
+    return "chunked" if shape[1] > sm._ROW_CAP else "ring"
+
+
+# h = 1, odd h, h not a multiple of the 128-row tile or the band; w = 1, 2,
+# 3, odd, 16384, one row per ring step with lines that shift from row to row
+# (10001), and past the ring's cap (the chunked row route).
+FINE_SHAPES = [
+    (1, 5), (1, 16384), (37, 1), (37, 2), (301, 3), (301, 130), (77, 1031), (130, 16384), (40, 10001), (6, 18440)
+]
+
+
+@pytest.mark.parametrize("kind", ["sparse", "zero", "claimed"])
+@pytest.mark.parametrize("shape", FINE_SHAPES, ids=[f"{h}x{w}" for h, w in FINE_SHAPES])
+def test_fine_passes_in_and_out_of_place(cuda, shape, kind):
+    """Each fine pass, out of place and in place, on a plane and on pass 1's
+    output, then a whole tail in place: planes and flags equal the twins';
+    the row route is the one the plan names."""
+    lab = torch.from_numpy(_fine_labels(shape, kind, seed=shape[0] + shape[1])).to(cuda)
+    for x in (lab, sm.fwd_v_plain(lab)[0]):
+        want = sm.fwd_v_plain(x)
+        _assert_same(sm.fwd_v_kernel(x), want)
+        xi = x.clone()
+        _assert_same(sm.fwd_v_kernel(xi, out=xi), want)
+        want = sm.bwd_vh_plain(x)
+        _ext.reset_launches()
+        _assert_same(sm.bwd_vh_kernel(x), want)
+        assert _ext.launches["bwd_vh"] == _ext.launches[f"bwd_vh_{_row_route(shape)}"] == 1
+        xi = x.clone()
+        _assert_same(sm.bwd_vh_kernel(xi, out=xi, scratch=torch.empty_like(xi)), want)
+    got, _ = sm._two_pass_rounds(lab, _held(sm.fwd_v_kernel, sm.fwd_v_plain), _held(sm.bwd_vh_kernel, sm.bwd_vh_plain))
+    _assert_same([got], [sm.component_min_labels_plain(lab)])
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096), (300, 16384), (9001, 3), (5000, 700)])
+def test_bwd_vh_violation_across_band_and_step_boundaries(cuda, shape):
+    """A plane whose only violation is one vertical pair straddling a band
+    start (checked through the band's shadow row), or a step start inside a
+    band (checked against the previous ring buffer): flag 1, as the twin."""
+    h, w = shape
+    plan = sm.row_plan(h, w, sm._sm_count(cuda))
+    assert plan["route"] == "ring"
+    starts = {"band": min(plan["band_rows"] * (plan["n_bands"] // 2), h - 1)}
+    if plan["band_rows"] > plan["rows_per_step"] + 1:
+        starts["step"] = plan["band_rows"] * (plan["n_bands"] // 2) + plan["rows_per_step"] - 1
+    for where, r in starts.items():
+        y = torch.zeros(shape, dtype=torch.int32, device=cuda)
+        y[r - 1, w // 2], y[r, w // 2] = 5, 9  # the backward scan keeps 5 over 9: one violated pair
+        want = sm.bwd_vh_plain(y)
+        assert want[1].item() == 1, where
+        _assert_same(sm.bwd_vh_kernel(y), want)
+        y[r, w // 2] = 3  # the backward scan joins them: no violation
+        want = sm.bwd_vh_plain(y)
+        assert want[1].item() == 0, where
+        _assert_same(sm.bwd_vh_kernel(y), want)
+
+
+@pytest.mark.parametrize("shape", [(300, 4096), (300, 1031), (257, 3)])
+def test_fine_scans_across_lookback_tiles(cuda, shape):
+    """A column whose only change crosses a 128-row tile boundary, forward
+    (fwd_v, rows 127 | 128 and 255 | 256) and backward (bwd_vh's column
+    scan, counted from the bottom): planes and flags equal the twins'."""
+    h, w = shape
+    c = w // 2
+    for r in (sm._VSCAN_TILE_ROWS, 2 * sm._VSCAN_TILE_ROWS):
+        y = torch.zeros(shape, dtype=torch.int32, device=cuda)
+        y[r - 1, c], y[r, c] = 5, 9  # forward: 9 becomes 5 across the tile boundary
+        want = sm.fwd_v_plain(y)
+        assert want[1].item() == 1
+        _assert_same(sm.fwd_v_kernel(y), want)
+        yi = y.clone()
+        _assert_same(sm.fwd_v_kernel(yi, out=yi), want)
+        y = torch.zeros(shape, dtype=torch.int32, device=cuda)
+        y[h - r, c], y[h - r - 1, c] = 5, 9  # backward: 9 becomes 5 across the tile boundary
+        _assert_same(sm.bwd_vh_kernel(y), sm.bwd_vh_plain(y))
+        assert sm.bwd_vh_kernel(y)[0][h - r - 1, c].item() == 5

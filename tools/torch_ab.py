@@ -11,7 +11,8 @@ that checkout (building its kernels there) and times ``watershed_e2e`` on the
 4096^2 fields of ``bench.py`` (N^2 with ``--side N``): the uniform u8 field
 ``default_rng(0).integers(0, 254)`` and the same draw with 10% of its pixels
 set to 255 (NaN dots).  Segmenting on the uniform field; merging on both, where the checkout
-serves it.  Median of 9 warm runs, CUDA events around each call (the host's
+serves it; at 4096^2 and below also NaN-dot merging on the legacy coarse
+rounds (``RWT_COARSE_MULTI=0``).  Median of 9 warm runs, CUDA events around each call (the host's
 flag reads inside).  ``--profile`` also traces 5 runs of each under
 ``torch.profiler``: device busy time per run (the union of the card's kernel,
 copy and set intervals), the wall of the same traced runs (CUDA events), the
@@ -67,6 +68,17 @@ def child(profile: bool, side: int) -> dict:
         "merging_dense": lambda: watershed_e2e(dense, merging=True, device=dev),
         "merging_nan10": lambda: watershed_e2e(dots, merging=True, device=dev),
     }
+    if side <= 4096:  # the coarse tail's legacy rounds; larger fields may exceed the coarse label bound
+        from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
+
+        def legacy():
+            sm._COARSE_MULTI = False
+            try:
+                return watershed_e2e(dots, merging=True, device=dev)
+            finally:
+                sm._COARSE_MULTI = True
+
+        cases["merging_nan10_legacy"] = legacy
 
     def timed(fn, reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

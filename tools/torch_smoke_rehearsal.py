@@ -29,6 +29,8 @@ CUTS = [
     ('BIG = 16384', 'BIG = 320'),
     ('WIDE = (2048, BIG)', 'WIDE = (64, BIG)'),
     ('TALL = (9001, 700)', 'TALL = (301, 70)'),
+    ('PAST_CAP = (300, 18440)', 'PAST_CAP = (7, 18440)'),
+    ('    split = {}\n', '    split = {"column scan": 1.0, "row kernel": 1.0}  # no device trace on the CPU\n'),
     ('(1024, 1024)', '(512, 512)'),
     ('0, 1024, 60', '0, 512, 60'),
     ('integers(1, 1023, (40, 2))', 'integers(1, 511, (40, 2))'),
@@ -69,6 +71,13 @@ def _fake_kernels():
     sm.coarse_broadcast_kernel = as_kernel(sm.coarse_broadcast_plain, "coarse_broadcast")
     for name in ("fwd_v", "bwd_vh", "cfwd_v", "cbwd_vh"):
         setattr(sm, f"{name}_kernel", as_kernel(getattr(sm, f"{name}_plain"), name))
+    bwd_vh = sm.bwd_vh_kernel
+
+    def bwd_vh_routed(y, **kw):  # the row route the card's plan would take
+        _ext.launches[f"bwd_vh_{sm.row_plan(*y.shape, 132)['route']}"] += 1
+        return bwd_vh(y, **kw)
+
+    sm.bwd_vh_kernel = bwd_vh_routed
     # The cut BIG x BIG field keeps the full size's label bound, so that it
     # takes the fine tail as 16384^2 does.
     bound = pipeline.max_seed_count
