@@ -5,7 +5,9 @@ one NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from csrc/, holds each against its plain
-PyTorch twin on the card, drives both main paths through the entry points a
+PyTorch twin on the card (every call of the 4096^2 relax fixed points with
+quiet tiles skipped, every coarse round of seven fields and of a 2048x16384
+tail), drives both main paths through the entry points a
 user calls (the public builder API on the committed goldens, ``watershed_e2e``
 on the 4096^2 u8 fields, ``transform_batch`` on 16 x 1024^2 cutouts) for the
 segmenting and the merging variant, then the level-sweep engine
@@ -166,6 +168,26 @@ def main() -> int:
     check(relax.relax_block_kernel(*stat_cases["border seed"], 8, stats=True)[2][relax.ANY_BORDER].item() == 1,
           "border seed seen by the statistics")
 
+    # Every call of the 4096^2 fixed points, quiet tiles skipped, against the
+    # twin's call on the same input planes.
+    n_tiles = relax.relax_plan(SIDE, SIDE, relax.DEFAULT_STEPS)["n_tiles"]
+    for label, (vv, kk, ll) in (("dense", (v, key0, lab0)), ("10% dots", (vd, kd, ld))):
+        for stats in (False, True):
+            skips = []
+
+            def held(src, dst, flags, skipped, vv=vv, stats=stats, label=label, skips=skips):
+                nonlocal relax_err
+                want = relax.relax_block_plain(vv, *src, relax.DEFAULT_STEPS, stats=stats)
+                err = max_err((*dst, flags), want)
+                check(err == 0, f"relax fixed point call {len(skips)} == twin on {label} (stats={stats})")
+                relax_err = max(relax_err, err)
+                skips.append(skipped)
+
+            relax.relax_fixed_point(vv, kk.clone(), ll.clone(), stats=stats, on_call=held)
+            check(skips[0] == 0, "the first call runs every tile")
+            print(f"[4 relax] {label} {SIDE}^2 fixed point (stats={stats}): all {len(skips)} calls bit-equal to the "
+                  f"twin (planes and flags); tiles skipped per call {skips} of {n_tiles}")
+
     # d field pinned at its maximum: the saturated key spreads without
     # carrying into the level field, and the detector fires.
     d_bits = 23
@@ -281,9 +303,15 @@ def main() -> int:
     s = relax.DEFAULT_STEPS
     relax_ms = median_ms(lambda: relax.relax_block_kernel(v, key0, lab0, s), 20)
     relax_plain_ms = median_ms(lambda: relax.relax_block_plain(v, key0, lab0, s), 5)
-    print(f"[7 time] relax {SIDE}^2 one call of {s} sweeps: kernel {relax_ms:.3f} ms, plain {relax_plain_ms:.3f} ms; gpu={gpu}")
+    px = SIDE * SIDE
+    relax_bound = bound(px * (1 + 8 + 8), px * s * 25)  # ~25 ops per cell and sweep
+    print(f"[7 time] relax {SIDE}^2 one call of {s} sweeps: kernel {relax_ms:.3f} ms, plain {relax_plain_ms:.3f} ms, "
+          f"bound {relax_bound[0]:.4f} ms ({relax_bound[1]}); gpu={gpu}")
     relax_stats_ms = median_ms(lambda: relax.relax_block_kernel(v, key0, lab0, s, stats=True), 20)
     print(f"[7 time] relax {SIDE}^2 one call of {s} sweeps with statistics: kernel {relax_stats_ms:.3f} ms; gpu={gpu}")
+    for label, vv, kk, ll in (("dense", v, key0, lab0), ("10% dots", vd, kd, ld)):
+        fp_ms = median_ms(lambda: relax.relax_fixed_point(vv, kk.clone(), ll.clone()), 9)
+        print(f"[7 time] relax {SIDE}^2 {label} fixed point (quiet tiles skipped) {fp_ms:.3f} ms; gpu={gpu}")
 
     # -- 8: the coarse kernels against their twins -----------------------------
     rng8 = np.random.default_rng(8)
@@ -312,30 +340,47 @@ def main() -> int:
         "w=3 1001x3": fixed_labels(narrow, narrow_seeds),
         f"tall {TALL[0]}x{TALL[1]} 10% dots": fixed_labels(tall),
     }
+    coarse_fields[f"past the ring {PAST_CAP[0]}x{PAST_CAP[1]}"] = fixed_labels(rngt.integers(0, 254, PAST_CAP).astype(np.uint8))
     coarse_err = {"coarsen": 0, "coarse_round": 0, "coarse_broadcast": 0}
-    for label, lab in coarse_fields.items():
+
+    def coarse_tail_against_twins(label, lab):
+        """The coarse tail through the kernels, every round held against the
+        twin (plane and change count; the twin runs first, as the round
+        writes over its input); returns the rounds and the row route."""
         c = sm.coarsen_kernel(lab)
         err = max_err([c], [sm.coarsen_plain(lab)])
         check(err == 0, f"coarsen kernel == twin on {label}")
         coarse_err["coarsen"] = max(coarse_err["coarsen"], err)
+        route = sm.row_plan(*c.shape, sm._sm_count(dev), coarse=True)["route"]
         scratch, rounds = torch.empty_like(c), 0
+        _ext.reset_launches()
         while True:
-            got = sm.coarse_round_kernel(c, scratch=scratch)
             want = sm.coarse_round_plain(c)
+            got = sm.coarse_round_kernel(c, out=c, scratch=scratch)
             torch.cuda.synchronize()
             err = max_err(got, want)
             check(err == 0, f"coarse round {rounds} kernel == twin on {label}")
             coarse_err["coarse_round"] = max(coarse_err["coarse_round"], err)
-            c, rounds = got[0], rounds + 1
+            rounds += 1
             if got[1].item() == 0:
                 break
             check(rounds < 10000, f"coarse rounds converge on {label}")
+        check(_ext.launches[f"coarse_round_{route}"] == _ext.launches["coarse_round"] == rounds,
+              f"the coarse round took the {route} row route on {label}")
         fine = sm.coarse_broadcast_kernel(c, lab)
         err = max_err([fine], [sm.coarse_broadcast_plain(c, lab)])
         check(err == 0, f"coarse broadcast kernel == twin on {label}")
         coarse_err["coarse_broadcast"] = max(coarse_err["coarse_broadcast"], err)
         check(torch.equal(fine, sm.component_min_labels_plain(lab)), f"coarse tail == oracle on {label}")
-        print(f"[8 coarse] {label}: coarsen, {rounds} rounds and broadcast bit-equal to their twins; tail == oracle")
+        return rounds, route
+
+    coarse_routes = set()
+    for label, lab in coarse_fields.items():
+        rounds, route = coarse_tail_against_twins(label, lab)
+        coarse_routes.add(route)
+        print(f"[8 coarse] {label}: coarsen, {rounds} rounds (row route {route}) and broadcast bit-equal to their "
+              "twins; tail == oracle")
+    check(coarse_routes == {"ring", "chunked"}, "both row routes of the coarse round ran")
 
     # -- 9: the merging public API on the goldens ------------------------------
     _ext.reset_launches()
@@ -396,6 +441,7 @@ def main() -> int:
     dots_relax_ms = median_ms(lambda: relax.relax_packed_planes(dots_dev, None, device=dev, stats=True), 9)
     lab_d = coarse_fields["10% 255-dots 4096^2"]
     tail_rounds = sm.component_min_coarse(lab_d, sm._CVAL)[1]
+    cells = (SIDE // 2) * SIDE
     tail_ms = median_ms(lambda: sm.component_min_coarse(lab_d, sm._CVAL), 9)
     print(f"[12 time] {SIDE}^2 merging e2e: dense {dense_ms:.3f} ms ({SIDE * SIDE / dense_ms / 1e3:.1f} Mpix/s, "
           f"relax calls {merge_runs['dense']['relax']}, shortcut); 10% dots {dots_ms:.3f} ms "
@@ -413,9 +459,11 @@ def main() -> int:
     round_plain_ms = median_ms(lambda: sm.coarse_round_plain(c0), 5)
     bcast_ms = median_ms(lambda: sm.coarse_broadcast_kernel(c_fin, lab_d), 20)
     bcast_plain_ms = median_ms(lambda: sm.coarse_broadcast_plain(c_fin, lab_d), 5)
+    round_bound = bound(2 * cells * 4, 2 * cells * 12)  # plane in, plane out; two passes of scans
     print(f"[12 time] coarsen {SIDE}^2: kernel {coarsen_ms:.3f} ms, plain {coarsen_plain_ms:.3f} ms; "
-          f"first coarse round: kernel {round_ms:.3f} ms, plain {round_plain_ms:.3f} ms; "
-          f"broadcast: kernel {bcast_ms:.3f} ms, plain {bcast_plain_ms:.3f} ms; gpu={gpu}")
+          f"first coarse round: kernel {round_ms:.3f} ms, plain {round_plain_ms:.3f} ms, bound {round_bound[0]:.4f} ms "
+          f"({round_bound[1]}); broadcast: kernel {bcast_ms:.3f} ms, plain {bcast_plain_ms:.3f} ms; gpu={gpu}")
+    round_in, round_scratch = c0, scratch  # for the per-launch split (phase 19: one profiler session a process)
 
     # -- 13: the flood kernel against its twin, both flags included ----------
     img_np, odd_dev = img.cpu().numpy(), to_dev(odd)
@@ -635,7 +683,6 @@ def main() -> int:
         "cbwd_vh full width": (median_ms(lambda: sm.cbwd_vh_kernel(cy_d, scratch=scratch_c), 20),
                                median_ms(lambda: sm.cbwd_vh_plain(cy_d), 5)),
     }
-    px, cells = SIDE * SIDE, (SIDE // 2) * SIDE
     pass_bounds = {  # plane in, plane out; ~6 ops per cell for a scan, ~25 for pass 2
         "fwd_v": bound(px * 8, px * 6), "bwd_vh": bound(px * 8, px * 25),
         "cfwd_v": bound(cells * 8, cells * 6), "cbwd_vh": bound(cells * 8, cells * 25),
@@ -723,6 +770,10 @@ def main() -> int:
     check(sum(wide_counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, f"no plain twin on the {WIDE[0]}x{WIDE[1]} e2e")
     print(f"[19 wide] {WIDE[0]}x{WIDE[1]} 10% dots watershed_e2e(merging=True) equals the exact engine + oracle "
           f"on the coarse tail; launches {wide_counts}")
+    rounds_w, route_w = coarse_tail_against_twins(f"{WIDE[0]}x{WIDE[1]} 10% dots", fixed_labels(wide))
+    check(rounds_w == wide_counts["coarse_round"] and route_w == "ring", f"{WIDE[0]}x{WIDE[1]}: the e2e's coarse tail")
+    print(f"[19 wide] {WIDE[0]}x{WIDE[1]} 10% dots: all {rounds_w} coarse rounds (row route {route_w}) bit-equal to the "
+          "twin, planes and change counts")
     del got, seg_w, wide_dev
 
     # The public API on a two-column field: the gate fails through w < 3.
@@ -768,21 +819,37 @@ def main() -> int:
     for kname, (ms, plain_ms) in big_ms.items():
         b_ms, b_by = big_bounds[kname]
         print(f"[19 time] {kname} {BIG}^2: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); gpu={gpu}")
-    # bwd_vh's two launches apart: the column scan and the ring row kernel.
+    # bwd_vh's two launches apart (the column scan and the ring row kernel),
+    # and the 4096^2 coarse round's three (the v-pass's two column scans and
+    # the h-pass), in one profiler session: a second session in the same
+    # process saw no device activity on the H100 host.
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
             sm.bwd_vh_kernel(y16, scratch=scratch16)
+        for _ in range(10):
+            sm.coarse_round_kernel(round_in, scratch=round_scratch)
         torch.cuda.synchronize()
-    split = {}
+    split, rsplit = {}, {}
     for e in prof.key_averages():
-        for part, key in (("column scan", "vscan_tiles"), ("row kernel", "row_ring")):
-            if key in e.key and e.device_type.name == "CUDA":
-                split[part] = getattr(e, "device_time_total", 0) / 1e3 / 5
+        if e.device_type.name != "CUDA":
+            continue
+        t = getattr(e, "device_time_total", 0) / 1e3
+        for part, key in (("column scan", "vscan_tiles<false, true, false>"), ("row kernel", "row_ring<false>")):
+            if key in e.key:
+                split[part] = t / 5
+        for part, key in (("v-pass forward", "vscan_tiles<true, true, true>"),
+                          ("v-pass backward", "vscan_tiles<true, true, false>"), ("h-pass", "row_ring<true>")):
+            if key in e.key:
+                rsplit[part] = t / 10
     check(len(split) == 2 and all(t > 0 for t in split.values()), "the profiler saw both launches of bwd_vh")
+    check(len(rsplit) == 3 and all(t > 0 for t in rsplit.values()), "the profiler saw the coarse round's three launches")
     print(f"[19 time] bwd_vh {BIG}^2 per launch (torch.profiler, mean of 5): column scan {split['column scan']:.4f} ms, "
           f"row kernel {split['row kernel']:.4f} ms; gpu={gpu}")
+    print(f"[19 time] first coarse round {SIDE}^2 per launch (torch.profiler, mean of 10): "
+          + ", ".join(f"{k} {t:.4f} ms" for k, t in rsplit.items()) + f"; gpu={gpu}")
+    del round_in, round_scratch
     del big, exact16, v16, key16, lab16_0, y16, scratch16, lab16, dots16_dev
 
     # How the fine passes scale with the side, on one label draw per side.
@@ -802,9 +869,9 @@ def main() -> int:
     # output written once) and the integer operations it does per cell.
     bounds = {
         "pack": bound(px * (1 + 1 + 4 + 4), px * 20),  # 8 compares + numbering per pixel
-        "relax": bound(px * (1 + 8 + 8), px * s * 25),  # ~25 ops per cell and sweep
+        "relax": relax_bound,
         "coarsen": bound(px * 4 + cells * 4, cells * 40),
-        "coarse_round": bound(2 * cells * 4, 2 * cells * 12),  # plane in, plane out; two passes of scans
+        "coarse_round": round_bound,
         "coarse_broadcast": bound(px * 4 + cells * 4 + px * 4, px * 6),
         "flood": bound(px * (1 + 4 + 4), px * fs * 12),  # image + labels in, labels out; ~12 ops per cell and sweep
         **{k: big_bounds[k] for k in ("relax2d", "fwd_v", "bwd_vh")},  # at 16384^2

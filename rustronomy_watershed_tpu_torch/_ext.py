@@ -16,7 +16,8 @@ transform: ``merge_shortcut`` (the single-component broadcast) or
 counts its label-table rounds as ``merge_round`` (ops/merge.py).  The fine
 ``bwd_vh`` kernel also counts the route of its row launch: ``bwd_vh_ring``
 (the shared-memory ring row kernel) or ``bwd_vh_chunked`` (rows wider than
-the ring).
+the ring), and so does ``coarse_round`` (``coarse_round_ring`` /
+``coarse_round_chunked``).
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ launches = {
     "merge_round": 0,
     "bwd_vh_ring": 0,
     "bwd_vh_chunked": 0,
+    "coarse_round_ring": 0,
+    "coarse_round_chunked": 0,
 }
 
 _lib = None
@@ -140,11 +143,11 @@ def lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         L.rwt_pack.argtypes = [P, P, P, P, P, P, I, I, I, P]
         L.rwt_pack.restype = I
-        L.rwt_relax.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
+        L.rwt_relax.argtypes = [P] * 10 + [I] * 10 + [P]
         L.rwt_relax.restype = I
         L.rwt_coarsen.argtypes = [P, P, I, I, P]
         L.rwt_coarsen.restype = I
-        L.rwt_coarse_round.argtypes = [P, P, P, P, I, I, P]
+        L.rwt_coarse_round.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
         L.rwt_coarse_round.restype = I
         L.rwt_coarse_broadcast.argtypes = [P, P, P, I, I, P]
         L.rwt_coarse_broadcast.restype = I
@@ -172,4 +175,6 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s device (the call
+    PyTorch's own Triton launcher makes: no Stream object per launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

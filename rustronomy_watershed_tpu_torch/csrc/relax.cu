@@ -11,177 +11,355 @@
 // every width, so the stripe geometry (`resolve_stripe_config`,
 // RWT_RELAX_STRIPES) was TPU tuning and is not carried over; the Jacobi
 // ping-pong and centre-only writes are the striped kernel's design.  Not
-// carried over either: the fused-scan epilogue, `ctr_cols`, band-activity
-// gating and the in-place aliased band DMAs.  Index arithmetic is in size_t
-// and the grid is (ceil(w/T), ceil(h/T)): 256 x 256 blocks at 16384^2.
+// carried over either: the fused-scan epilogue, `ctr_cols` and the in-place
+// aliased band DMAs.  Index arithmetic is in size_t.
 //
 // Update of one cell (key = L << d_bits | d, see ops/relax.py):
 //   best  = min(key, max(ext(min4 kq), vcand)),  ext(a) = min(a+1, a|d_mask)
 //   label = min label of 4-neighbours with kq < best; kept if none, or if
 //           best is still unclaimed (claimed-ness gate).
-// Cells outside the image read as key `unclaimed`, label 0, value 255: they
-// never change and never donate, as the TPU layout's aprons.  Every key is
-// <= unclaimed = 255 << d_bits, so kmin + 1 and vkey + 1 stay below 2^31.
+// vcand = (v << d_bits) + 1 needs no clamp at the unclaimed key: where v is
+// 255 it exceeds every key, and so does the clamped value, so best is the
+// key either way.  Cells outside the image read as key `unclaimed`, label 0,
+// value 255: they never change and never donate, as the TPU layout's
+// aprons.  Every key is <= unclaimed = 255 << d_bits, so kmin + 1 and
+// vcand stay below 2^31.
 //
-// What bounds it: on-chip work.  Each block loads a (T+2S)^2 window of the
-// planes (T = centre tile, S = steps) into shared memory once, runs S sweeps
-// there and writes back its T^2 centre: device memory sees about
-// 9 B/cell * ((T+2S)/T)^2 in and 8 B/cell out per call instead of per sweep,
-// and the sweeps cost shared-memory reads and integer ops.  Design:
-//   * Jacobi ping-pong in shared memory (two key and two label buffers), so
-//     one launch equals exactly S global sweeps, bit for bit;
-//   * sweep j updates only window cells at distance >= j from the window
-//     edge: those are exact (their dependency cone lies in the window), and
-//     after S sweeps the exact region is precisely the centre;
-//   * change counting and the saturation test run over centre cells only:
-//     a centre cell at internal sweep j equals the global sweep j, so "the
-//     last sweep changed no centre cell in any block" certifies the fixed
-//     point (pallas_relax.py:499-508);
-//   * when a sweep changes nothing in a block's exact region, the remaining
-//     sweeps are the identity there, and the block stops early;
-//   * block results reach the three int32 flags through atomicOr;
-//   * with `stats`, the write-back loop also reduces the merging shortcut's
-//     statistics over the real image (interior = rows 1..h-2, columns
-//     1..w-2; claimed = label != 0): the unclaimed interior count, whether a
-//     border cell is claimed, and the least claimed interior label (kInf
-//     when there is none).  Warp reductions, then shared-memory atomics,
-//     then one atomicAdd / atomicOr / atomicMin per block.  `stats` is a
-//     template parameter: the segmenting instantiation holds none of this
-//     code (a runtime flag measured 7% slower there on an H100).
-// Later work: skip converged tiles, TMA loads, no per-call host flag read.
+// What bounds it: integer work on chip.  Each block loads a window of the
+// planes once, runs S = steps sweeps on it and writes back its centre tile
+// (the window less S cells on each side): device memory sees about 9 B a
+// cell in and 8 B out per call, not per sweep.  At S = 8 a 4096^2 call is
+// about 0.2 G cell updates of some 27 integer operations each.  Design:
+//   * register-blocked sweeps: a block is one warp wide and `warps` deep; a
+//     thread holds a strip of kR rows x 4 columns (key, label and the u8
+//     value) in registers, so a window is 128 columns x (kR * warps) rows.
+//     Vertical neighbours inside a strip and horizontal ones inside a
+//     thread are registers, horizontal ones across threads come by
+//     __shfl_sync, and only a strip's top and bottom rows go through shared
+//     memory (16-byte stores and loads, double-buffered by sweep parity):
+//     one block barrier per sweep, which also votes the previous sweep's
+//     change flag;
+//   * Jacobi: a row's new values are computed from the old row above (kept
+//     aside), the old row itself and the old row below, so one launch
+//     equals exactly S global sweeps, bit for bit;
+//   * sweep j is exact at distance >= j from the window edge (its
+//     dependency cone lies in the window), so after S sweeps the centre is
+//     exact.  When a sweep changes nothing in the rows of its exact region
+//     (all their columns: a superset of the region), the remaining sweeps
+//     are the identity on the region and the block stops early;
+//   * quiet tiles are skipped: with the previous call's per-tile change
+//     flags (`chg_prev`, from relax_fixed_point), a block whose tile and 8
+//     neighbour tiles changed no centre cell in that call returns at once
+//     (its output is already in the destination plane, see ops/relax.py);
+//   * the flags: changed_any / changed_last by one atomicOr per block; the
+//     saturation bit and the statistics as per-tile partials (written when
+//     a tile runs, kept when it is skipped), reduced over all tiles by a
+//     second one-block launch.  `stats` is a template parameter: the
+//     segmenting instantiation holds no statistics code.
+// The strip depth and the warps per block come from the launch plan in
+// ops/relax.py (relax_plan): strips of 8 rows in 16 warps, a 128 x 128
+// window, 112 x 112 centre tiles at 8 steps.  On an H100 strips of 4 rows
+// in 24 warps (768 threads, 80 registers, 80 x 112 tiles) were no faster
+// per call at 4096^2 and slower at 16384^2.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTx = 32, kTy = 8;  // block shape: one warp per window row
+constexpr int kCols = 4;           // columns a thread owns
+constexpr int kWinX = 32 * kCols;  // window width: one warp across
 constexpr int kBigLab = 1 << 30;
 constexpr int kInf = 1 << 29;  // "no claimed interior cell" (scan_merge _INF)
+constexpr unsigned kFull = 0xffffffffu;
 
+constexpr int kR = 8;              // rows of a thread's strip
+constexpr int kMaxThreads = 512;   // 16 warps: a 128 x 128 window, 128 registers a thread
+
+// Shared-memory rows of one block: [sweep parity][warp][top key, top label,
+// bottom key, bottom label][lane], one int4 (four columns) each.
 template <bool kStats>
-__global__ void __launch_bounds__(kTx * kTy)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
              const int32_t* __restrict__ lab_in, int32_t* __restrict__ key_out,
-             int32_t* __restrict__ lab_out, int32_t* __restrict__ flags, int h,
-             int w, int steps, int d_bits, int tile) {
-  extern __shared__ int32_t smem[];
-  __shared__ int32_t s_uncl, s_min;
-  const int S = steps, T = tile, W = T + 2 * S, N = W * W;
-  int32_t* kc = smem;  // current keys
-  int32_t* kn = kc + N;  // next keys
-  int32_t* lc = kn + N;
-  int32_t* ln = lc + N;
-  uint8_t* vs = reinterpret_cast<uint8_t*>(ln + N);
-  const int unclaimed = 255 << d_bits;
-  const int d_mask = (1 << d_bits) - 1;
-  const int y0 = blockIdx.y * T - S, x0 = blockIdx.x * T - S;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  if (kStats && tx == 0 && ty == 0) {
-    s_uncl = 0;
-    s_min = kInf;
+             int32_t* __restrict__ lab_out, int32_t* __restrict__ flags,
+             const int32_t* __restrict__ chg_prev, int32_t* __restrict__ chg,
+             int32_t* __restrict__ part, int h, int w, int steps, int d_bits,
+             int tile_y, int tile_x, int vec) {
+  extern __shared__ int4 xrow[];
+  __shared__ int s_red[3];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int S = steps, WY = nw * kR;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int unclaimed = 255 << d_bits, d_mask = (1 << d_bits) - 1, vmul = 1 << d_bits;
+
+  // A tile whose 3x3 neighbourhood changed nothing in the previous call.
+  if (chg_prev != nullptr) {
+    bool quiet = true;
+    if (threadIdx.x < 9) {
+      const int ny = (int)blockIdx.y + (int)threadIdx.x / 3 - 1;
+      const int nx = (int)blockIdx.x + (int)threadIdx.x % 3 - 1;
+      if (ny >= 0 && ny < (int)gridDim.y && nx >= 0 && nx < (int)gridDim.x)
+        quiet = chg_prev[ny * gridDim.x + nx] != 1;
+    }
+    if (__syncthreads_and(quiet)) {
+      if (threadIdx.x == 0) chg[tile] = 2;
+      return;
+    }
+  }
+  if (threadIdx.x == 0) {
+    s_red[0] = 0;
+    s_red[1] = 0;
+    s_red[2] = kInf;
   }
 
-  for (int wy = ty; wy < W; wy += kTy) {
-    const int gy = y0 + wy;
-    for (int wx = tx; wx < W; wx += kTx) {
-      const int gx = x0 + wx, c = wy * W + wx;
-      if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-        const size_t g = (size_t)gy * w + gx;
-        kc[c] = key_in[g];
-        lc[c] = lab_in[g];
-        vs[c] = v[g];
-      } else {
-        kc[c] = unclaimed;
-        lc[c] = 0;
-        vs[c] = 255;
+  // The strip: plane rows y0 .. y0+kR-1, columns x0 .. x0+3.
+  const int xw = lane * kCols;  // window column of the first owned cell
+  const int y0 = (int)blockIdx.y * tile_y - S + wid * kR;
+  const int x0 = (int)blockIdx.x * tile_x - S + xw;
+  const bool vec_x = vec && x0 >= 0 && x0 < w && (x0 & 3) == 0;
+  int k[kR][kCols], l[kR][kCols];
+  uint32_t vb[kR];  // byte j: the value of column j
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int gy = y0 + r;
+    const bool row_in = gy >= 0 && gy < h;
+    if (row_in && vec_x) {
+      const size_t g = (size_t)gy * w + x0;
+      const int4 a = *reinterpret_cast<const int4*>(key_in + g);
+      const int4 b = *reinterpret_cast<const int4*>(lab_in + g);
+      k[r][0] = a.x; k[r][1] = a.y; k[r][2] = a.z; k[r][3] = a.w;
+      l[r][0] = b.x; l[r][1] = b.y; l[r][2] = b.z; l[r][3] = b.w;
+      vb[r] = *reinterpret_cast<const uint32_t*>(v + g);
+    } else {
+      vb[r] = 0;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int gx = x0 + j;
+        uint32_t b = 255;
+        k[r][j] = unclaimed;
+        l[r][j] = 0;
+        if (row_in && gx >= 0 && gx < w) {
+          const size_t g = (size_t)gy * w + gx;
+          k[r][j] = key_in[g];
+          l[r][j] = lab_in[g];
+          b = v[g];
+        }
+        vb[r] |= b << (8 * j);
       }
     }
   }
-  __syncthreads();
 
-  bool any_c = false, last_c = false;
+  int ctr_col[kCols];  // -1 where the column lies in the centre
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) ctr_col[j] = (xw + j >= S && xw + j < kWinX - S) ? -1 : 0;
+  bool any_c = false, last_c = false, reg_c = true;
   for (int s = 1; s <= S; ++s) {
-    bool reg_c = false, ctr_c = false;
-    for (int wy = s + ty; wy < W - s; wy += kTy) {
-      const bool ctr_row = wy >= S && wy < S + T;
-      for (int wx = s + tx; wx < W - s; wx += kTx) {
-        const int c = wy * W + wx;
-        const int k = kc[c], l = lc[c];
-        const int ku = kc[c - W], kd = kc[c + W], kl = kc[c - 1], kr = kc[c + 1];
-        const int kmin = min(min(ku, kd), min(kl, kr));
-        const int ext = min(kmin + 1, kmin | d_mask);
-        const int vcand = min((static_cast<int>(vs[c]) << d_bits) + 1, unclaimed);
-        const int best = min(k, max(ext, vcand));
-        int lm = kBigLab;
-        if (ku < best) lm = min(lm, lc[c - W]);
-        if (kd < best) lm = min(lm, lc[c + W]);
-        if (kl < best) lm = min(lm, lc[c - 1]);
-        if (kr < best) lm = min(lm, lc[c + 1]);
-        const int nl = (lm == kBigLab || best == unclaimed) ? l : lm;
-        kn[c] = best;
-        ln[c] = nl;
-        const bool ch = best != k || nl != l;
-        reg_c |= ch;
-        ctr_c |= ch && ctr_row && wx >= S && wx < S + T;
+    int4* xb = xrow + ((s & 1) * nw + wid) * 4 * 32 + lane;
+    xb[0] = make_int4(k[0][0], k[0][1], k[0][2], k[0][3]);
+    xb[32] = make_int4(l[0][0], l[0][1], l[0][2], l[0][3]);
+    xb[64] = make_int4(k[kR - 1][0], k[kR - 1][1], k[kR - 1][2], k[kR - 1][3]);
+    xb[96] = make_int4(l[kR - 1][0], l[kR - 1][1], l[kR - 1][2], l[kR - 1][3]);
+    // Publishes the rows and votes the previous sweep: when it changed
+    // nothing in its exact region, later sweeps are the identity there.
+    if (!__syncthreads_or(reg_c)) break;
+
+    int pk[kCols], pl[kCols];  // the old row above (outside the window: unclaimed)
+    if (wid > 0) {
+      const int4 a = xb[-64], b = xb[-32];
+      pk[0] = a.x; pk[1] = a.y; pk[2] = a.z; pk[3] = a.w;
+      pl[0] = b.x; pl[1] = b.y; pl[2] = b.z; pl[3] = b.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        pk[j] = unclaimed;
+        pl[j] = 0;
       }
     }
-    // Both reductions double as the barrier before the next sweep.
-    const bool reg_any = __syncthreads_or(reg_c) != 0;
-    last_c = __syncthreads_or(ctr_c) != 0;
+    // Rows of this sweep's exact region count every column: a superset of
+    // the region, so a quiet vote still proves it quiet (the early exit
+    // stays exact); the centre, which sets the flags, is counted exactly.
+    int reg = 0, ctr = 0;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      int dk[kCols], dl[kCols];  // the old row below
+      if (r + 1 < kR) {
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          dk[j] = k[r + 1][j];
+          dl[j] = l[r + 1][j];
+        }
+      } else if (wid + 1 < nw) {
+        const int4 a = xb[128], b = xb[160];
+        dk[0] = a.x; dk[1] = a.y; dk[2] = a.z; dk[3] = a.w;
+        dl[0] = b.x; dl[1] = b.y; dl[2] = b.z; dl[3] = b.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          dk[j] = unclaimed;
+          dl[j] = 0;
+        }
+      }
+      // The old left neighbour, from the thread on the left for column 0.
+      int okl = __shfl_up_sync(kFull, k[r][kCols - 1], 1), oll = __shfl_up_sync(kFull, l[r][kCols - 1], 1);
+      int kr3 = __shfl_down_sync(kFull, k[r][0], 1), lr3 = __shfl_down_sync(kFull, l[r][0], 1);
+      if (lane == 0) {
+        okl = unclaimed;
+        oll = 0;
+      }
+      if (lane == 31) {
+        kr3 = unclaimed;
+        lr3 = 0;
+      }
+      int ed = 0, cd = 0;
+      // In place, left to right: the old values of the cell go to the row
+      // above's slot (for row r + 1) and to the left neighbour's (for j + 1).
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int k0 = k[r][j], l0 = l[r][j];
+        const int ku = pk[j], kd = dk[j], kl = okl, kr = j < kCols - 1 ? k[r][j + 1] : kr3;
+        const int lu = pl[j], ld = dl[j], ll = oll, lr = j < kCols - 1 ? l[r][j + 1] : lr3;
+        const int kmin = __vimin3_s32(ku, kd, min(kl, kr));
+        const int ext = min(kmin + 1, kmin | d_mask);
+        const int vc = (int)((vb[r] >> (8 * j)) & 255u) * vmul + 1;
+        const int best = min(k0, max(ext, vc));
+        const int lm = min(__vimin3_s32(ku < best ? lu : kBigLab, kd < best ? ld : kBigLab, kl < best ? ll : kBigLab),
+                           kr < best ? lr : kBigLab);
+        const int nl = (lm == kBigLab || best == unclaimed) ? l0 : lm;
+        const int d = (best ^ k0) | (nl ^ l0);
+        ed |= d;
+        cd |= d & ctr_col[j];
+        pk[j] = okl = k0;
+        pl[j] = oll = l0;
+        k[r][j] = best;
+        l[r][j] = nl;
+      }
+      const int yy = wid * kR + r;
+      if (yy >= s && yy < WY - s) reg |= ed;
+      if (yy >= S && yy < WY - S) ctr |= cd;
+    }
+    reg_c = reg != 0;
+    last_c = ctr != 0;
     any_c |= last_c;
-    int32_t* t = kc; kc = kn; kn = t;
-    t = lc; lc = ln; ln = t;
-    // Quiet exact region: every later sweep is the identity on it, so the
-    // centre and last_c (already false) are final.
-    if (!reg_any) break;
   }
 
-  bool sat = false, cl_border = false;
+  // Write back the centre; the saturation bit and the statistics.
+  bool sat = false, border = false;
   int uncl = 0, gmin = kInf;
-  for (int cy = ty; cy < T; cy += kTy) {
-    const int gy = blockIdx.y * T + cy;
-    if (gy >= h) break;
-    for (int cx = tx; cx < T; cx += kTx) {
-      const int gx = blockIdx.x * T + cx;
-      if (gx >= w) break;
-      const int c = (S + cy) * W + (S + cx);
-      const size_t g = (size_t)gy * w + gx;
-      const int k = kc[c], l = lc[c];
-      key_out[g] = k;
-      lab_out[g] = l;
-      sat |= k < unclaimed && l == 0;
+  const bool vec_c = vec_x && xw >= S && xw + kCols <= kWinX - S && x0 + kCols <= w;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int yy = wid * kR + r, gy = y0 + r;
+    if (yy < S || yy >= WY - S || gy >= h) continue;
+    if (vec_c) {
+      const size_t g = (size_t)gy * w + x0;
+      *reinterpret_cast<int4*>(key_out + g) = make_int4(k[r][0], k[r][1], k[r][2], k[r][3]);
+      *reinterpret_cast<int4*>(lab_out + g) = make_int4(l[r][0], l[r][1], l[r][2], l[r][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int gx = x0 + j;
+      if (xw + j < S || xw + j >= kWinX - S || gx >= w) continue;
+      const int kk = k[r][j], ll = l[r][j];
+      if (!vec_c) {
+        const size_t g = (size_t)gy * w + gx;
+        key_out[g] = kk;
+        lab_out[g] = ll;
+      }
+      sat |= kk < unclaimed && ll == 0;
       if constexpr (kStats) {
         if (gy >= 1 && gy <= h - 2 && gx >= 1 && gx <= w - 2) {
-          if (l == 0) ++uncl;
-          else gmin = min(gmin, l);
+          if (ll == 0) ++uncl;
+          else gmin = min(gmin, ll);
         } else {
-          cl_border |= l != 0;
+          border |= ll != 0;
         }
       }
     }
   }
+  const int bits = (__any_sync(kFull, any_c) ? 1 : 0) | (__any_sync(kFull, last_c) ? 2 : 0) |
+                   (__any_sync(kFull, sat) ? 4 : 0) | (__any_sync(kFull, border) ? 8 : 0);
   if constexpr (kStats) {
-    const int wu = __reduce_add_sync(0xffffffffu, uncl);
-    const int wm = __reduce_min_sync(0xffffffffu, gmin);
-    if (tx == 0) {
-      if (wu) atomicAdd(&s_uncl, wu);
-      atomicMin(&s_min, wm);
-    }
+    uncl = __reduce_add_sync(kFull, uncl);
+    gmin = __reduce_min_sync(kFull, gmin);
   }
-  // Also the barrier after the shared-memory atomics above.
-  sat = __syncthreads_or(sat) != 0;
-  if constexpr (kStats) cl_border = __syncthreads_or(cl_border) != 0;
-  if (tx == 0 && ty == 0) {
-    if (any_c) atomicOr(flags + 0, 1);
-    if (last_c) atomicOr(flags + 1, 1);
-    if (sat) atomicOr(flags + 2, 1);
+  if (lane == 0) {
+    if (bits) atomicOr(&s_red[0], bits);
     if constexpr (kStats) {
-      if (s_uncl) atomicAdd(flags + 3, s_uncl);
-      if (cl_border) atomicOr(flags + 4, 1);
-      atomicMin(flags + 5, s_min);
+      if (uncl) atomicAdd(&s_red[1], uncl);
+      atomicMin(&s_red[2], gmin);
     }
   }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int b = s_red[0];
+    if (b & 1) atomicOr(flags + 0, 1);
+    if (b & 2) atomicOr(flags + 1, 1);
+    if (chg != nullptr) chg[tile] = b & 1;
+    int4* p = reinterpret_cast<int4*>(part) + tile;
+    *p = make_int4((b >> 2) & 1, s_red[1], (b >> 3) & 1, s_red[2]);
+  }
+}
+
+// The per-tile partials [sat, unclaimed interior, claimed border, least
+// claimed interior label] of all tiles into flags[2] (and flags[3..5] with
+// `stats`); `skipped` (may be null) gets the number of tiles whose chg
+// entry is 2.
+__global__ void __launch_bounds__(1024)
+relax_reduce(const int32_t* __restrict__ chg, const int4* __restrict__ part, int n_tiles,
+             int32_t* __restrict__ flags, int stats, int32_t* skipped) {
+  __shared__ int s_red[5];
+  if (threadIdx.x == 0) {
+    s_red[0] = s_red[1] = s_red[2] = s_red[4] = 0;
+    s_red[3] = kInf;
+  }
+  __syncthreads();
+  int sat = 0, uncl = 0, border = 0, gmin = kInf, sk = 0;
+  for (int t = threadIdx.x; t < n_tiles; t += blockDim.x) {
+    const int4 p = part[t];
+    sat |= p.x;
+    uncl += p.y;
+    border |= p.z;
+    gmin = min(gmin, p.w);
+    if (skipped != nullptr) sk += chg[t] == 2;
+  }
+  sat = __reduce_or_sync(kFull, sat);
+  uncl = __reduce_add_sync(kFull, uncl);
+  border = __reduce_or_sync(kFull, border);
+  gmin = __reduce_min_sync(kFull, gmin);
+  sk = __reduce_add_sync(kFull, sk);
+  if ((threadIdx.x & 31) == 0) {
+    atomicOr(&s_red[0], sat);
+    atomicAdd(&s_red[1], uncl);
+    atomicOr(&s_red[2], border);
+    atomicMin(&s_red[3], gmin);
+    atomicAdd(&s_red[4], sk);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    flags[2] = s_red[0];
+    if (stats) {
+      flags[3] = s_red[1];
+      flags[4] = s_red[2];
+      flags[5] = s_red[3];
+    }
+    if (skipped != nullptr) *skipped = s_red[4];
+  }
+}
+
+template <bool kStats>
+cudaError_t launch(const dim3& grid, int threads, size_t smem, cudaStream_t st, const void* v, const void* key_in,
+                   const void* lab_in, void* key_out, void* lab_out, void* flags, const void* chg_prev, void* chg,
+                   void* part, int h, int w, int steps, int d_bits, int tile_y, int tile_x, int vec) {
+  auto kernel = relax_kernel<kStats>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, threads, smem, st>>>(
+      static_cast<const uint8_t*>(v), static_cast<const int32_t*>(key_in), static_cast<const int32_t*>(lab_in),
+      static_cast<int32_t*>(key_out), static_cast<int32_t*>(lab_out), static_cast<int32_t*>(flags),
+      static_cast<const int32_t*>(chg_prev), static_cast<int32_t*>(chg), static_cast<int32_t*>(part), h, w, steps,
+      d_bits, tile_y, tile_x, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -189,33 +367,39 @@ relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
 // v: (h, w) u8; key_in, lab_in -> key_out, lab_out: (h, w) int32 (outputs
 // must not alias inputs); flags: int32 [changed_any, changed_last, sat],
 // followed when `stats` is nonzero by [n_unclaimed_interior,
-// any_claimed_border, min_claimed_interior_label], initialised here.
+// any_claimed_border, min_claimed_interior_label], all written here.
+// The launch plan (ops/relax.py relax_plan): strips of `rows` (8) rows,
+// `warps` warps per block, centre tiles of tile_y x tile_x =
+// (warps * rows - 2 * steps) x (128 - 2 * steps).  Tile state, n_tiles =
+// ceil(h / tile_y) * ceil(w / tile_x) entries: part, 4 int32 per tile
+// (written by the tiles that run; the reduction reads every tile's);
+// chg (may be null), one int32 per tile: 1 when a centre cell changed, 0
+// when none did, 2 when skipped; chg_prev (may be null) the previous call's
+// chg, which turns skipping on.  skipped (may be null): the number of tiles
+// skipped.  vec: w % 4 == 0 and the planes 16-byte (v 4-byte) aligned.
 // Launches on `stream`, does not synchronise, returns cudaGetLastError()
-// (nonzero when the launch was refused).
-extern "C" int rwt_relax(const void* v, const void* key_in, const void* lab_in,
-                         void* key_out, void* lab_out, void* flags, int h,
-                         int w, int steps, int d_bits, int tile, int stats,
+// (nonzero when a launch was refused).
+extern "C" int rwt_relax(const void* v, const void* key_in, const void* lab_in, void* key_out, void* lab_out,
+                         void* flags, const void* chg_prev, void* chg, void* part, void* skipped, int h, int w,
+                         int steps, int d_bits, int rows, int warps, int tile_y, int tile_x, int stats, int vec,
                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int W = tile + 2 * steps;
-  const size_t smem = (size_t)W * W * (4 * sizeof(int32_t) + 1);
-  auto kernel = stats ? relax_kernel<true> : relax_kernel<false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rows != kR || warps < 1 || 32 * warps > kMaxThreads || steps < 1 ||
+      tile_x != kWinX - 2 * steps || tile_y != warps * rows - 2 * steps || tile_x < 1 || tile_y < 1 ||
+      part == nullptr || (chg_prev != nullptr && chg == nullptr) || (skipped != nullptr && chg == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((w + tile_x - 1) / tile_x, (h + tile_y - 1) / tile_y);
+  const int n_tiles = static_cast<int>(grid.x * grid.y);
+  cudaError_t e = cudaMemsetAsync(flags, 0, (stats ? 6 : 3) * sizeof(int32_t), st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaMemsetAsync(flags, 0, (stats ? 5 : 3) * sizeof(int32_t), st);
+  const size_t smem = (size_t)2 * warps * 4 * 32 * sizeof(int4);
+  const int threads = 32 * warps;
+  e = stats ? launch<true>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg, part,
+                           h, w, steps, d_bits, tile_y, tile_x, vec)
+            : launch<false>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg, part,
+                            h, w, steps, d_bits, tile_y, tile_x, vec);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (stats) {
-    // Bytes of 0x7f make 0x7f7f7f7f > kInf; every block's atomicMin brings
-    // the slot down to at most kInf.
-    e = cudaMemsetAsync(static_cast<int32_t*>(flags) + 5, 0x7f, sizeof(int32_t), st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((w + tile - 1) / tile, (h + tile - 1) / tile);
-  kernel<<<grid, dim3(kTx, kTy), smem, st>>>(
-      static_cast<const uint8_t*>(v), static_cast<const int32_t*>(key_in),
-      static_cast<const int32_t*>(lab_in), static_cast<int32_t*>(key_out),
-      static_cast<int32_t*>(lab_out), static_cast<int32_t*>(flags), h, w,
-      steps, d_bits, tile);
+  relax_reduce<<<1, 1024, 0, st>>>(static_cast<const int32_t*>(chg), static_cast<const int4*>(part), n_tiles,
+                                   static_cast<int32_t*>(flags), stats, static_cast<int32_t*>(skipped));
   return static_cast<int>(cudaGetLastError());
 }

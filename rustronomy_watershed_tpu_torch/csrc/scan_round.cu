@@ -27,7 +27,8 @@
 //     order, so rwt_coarse_round is a full-length run-min of every column
 //     (plane -> scratch), then of every row (scratch -> out), counting the
 //     cells that changed; the host stops after a round that changed none
-//     (the change-based certificate of scan_merge.py:1114-1128).
+//     (the change-based certificate of scan_merge.py:1114-1128).  Its
+//     launches are the fine passes' kernels in the coarse form (below).
 // Every launch reads whole planes and writes whole planes, so each entry
 // point equals its plain twin (ops/scan_merge.py) bit for bit.
 //
@@ -66,11 +67,26 @@
 //     upper neighbour row once (a shadow row, never stored) instead of
 //     reading another block's output.
 //   * Rows wider than the ring (kRowCap cells) take the chunked route: the
-//     chunked-carry run_min_pass<false,false> below, then the
-//     violations<false> stencil as its own launch.
+//     chunked-carry run_min_pass<false> below, then the violations<false>
+//     stencil as its own launch.
 // Index arithmetic is size_t: the 16384^2 plane is 1 GiB.
 //
-// The coarse passes (v_pass<true,*>, run_min_pass<true,*>, hwin_pass,
+// The coarse round (rwt_coarse_round) runs the same two kernels in their
+// coarse form (kCoarse): a scan restarts at a cell whose reset bit for its
+// direction is set (24 forward / 25 backward down columns, 26 / 27 along
+// rows) instead of at an unclaimed cell, empty cells (value 0) scan as kInf
+// and stay, bits 24-31 pass through (with_value<true>), no border line is
+// kept, and the kernels count the cells whose value changed (warp sums, one
+// atomicAdd per warp) where the fine ones raise flags.  The v-pass is two
+// `vscan_tiles` launches: forward c -> scratch, then backward in place on
+// scratch, counting against c (a cell's value only falls, so it changed in
+// the v-pass iff it differs from c; at 4096^2 the 33.5 MB coarse plane sits
+// in L2 for that second read).  One launch that also waited on the tiles
+// below for the backward carry could deadlock under the atomic tile order,
+// so the directions stay apart.  The h-pass is `row_ring` with no shadow
+// row and no stencil; rows over kRowCap cells take run_min_pass<true>.
+//
+// The legacy coarse passes (v_pass<true,*>, run_min_pass<true>, hwin_pass,
 // violations<true>) are the chunked-carry design: a block owns 32 columns
 // or 8 rows, each line is cut into 32 chunks, one thread per chunk; a
 // thread folds its chunk into a (value, reset-seen) aggregate, one thread
@@ -186,33 +202,31 @@ v_pass(const int32_t* in, int32_t* out, int32_t* changed, int h, int w) {
   if (changed != nullptr && ch && li == 0 && ck == 0) atomicOr(changed, 1);
 }
 
-// The full-length run-min of every column (kV) or row: a forward scan under
-// the forward resets into `out`, then a backward scan of that under the
-// backward resets (the run-min, as the TPU's min of two independent scans
-// is).  in -> out, which must not alias.  Fine border lines keep their
-// cells.  `changed` (may be null) gets the number of cells whose value
-// changed.  A block owns 32 columns (a warp reads 32 neighbouring columns,
-// coalesced) or 8 rows (a warp covers the 32 chunks of one row, at a
-// stride).
-template <bool kCoarse, bool kV>
-__global__ void __launch_bounds__(kV ? 1024 : 256)
+// The full-length run-min of every row: a forward scan under the forward
+// resets into `out`, then a backward scan of that under the backward resets
+// (the run-min, as the TPU's min of two independent scans is).  in -> out,
+// which must not alias.  Fine border rows keep their cells.  `changed` (may
+// be null) gets the number of cells whose value changed.  A block owns 8
+// rows, each cut into 32 chunks (a warp covers the chunks of one row, at a
+// stride): the route for rows wider than the ring row kernel takes.
+template <bool kCoarse>
+__global__ void __launch_bounds__(256)
 run_min_pass(const int32_t* __restrict__ in, int32_t* __restrict__ out,
              int32_t* changed, int h, int w) {
-  constexpr int kLines = kV ? 32 : 8;
-  constexpr int kFwd = kV ? kVf : kHf, kBwd = kFwd + 1;
+  constexpr int kLines = 8;
+  constexpr int kFwd = kHf, kBwd = kHb;
   __shared__ int agg_v[kLines][kChunks + 1];
   __shared__ int agg_r[kLines][kChunks + 1];
   __shared__ int carry[kLines][kChunks + 1];
-  const int li = kV ? threadIdx.x : threadIdx.y;  // line within the block
-  const int ck = kV ? threadIdx.y : threadIdx.x;  // chunk within the line
-  const int n = kV ? h : w, n_lines = kV ? w : h;
+  const int li = threadIdx.y;  // row within the block
+  const int ck = threadIdx.x;  // chunk within the row
   const int line = blockIdx.x * kLines + li;
-  const int len = (n + kChunks - 1) / kChunks;
-  const int s = min(n, ck * len), e = min(n, s + len);
-  const bool live = line < n_lines;
-  const bool keep = !kCoarse && (line == 0 || line == n_lines - 1);
-  const size_t base = kV ? (size_t)line : (size_t)line * w;
-  const size_t stride = kV ? (size_t)w : 1;
+  const int len = (w + kChunks - 1) / kChunks;
+  const int s = min(w, ck * len), e = min(w, s + len);
+  const bool live = line < h;
+  const bool keep = !kCoarse && (line == 0 || line == h - 1);
+  const size_t base = (size_t)line * w;
+  constexpr size_t stride = 1;
 
   int m = kInf, r = 0;
   if (live) {
@@ -366,16 +380,21 @@ __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
-// One directional segmented min scan down every column of the fine plane:
-// in -> out (which may be `in`), border columns kept.  A block scans one
-// tile of kTileRows x (32 * lanes' columns); tiles are numbered in scan
-// order (row of tiles, then column of tiles) by `status[0]`, an atomic
-// counter.  status: [counter, flag per tile, aggregate per tile and column,
-// inclusive carry per tile and column]; the counter and the flags are zero
-// at launch.  `changed` (may be null) gets 1 when some cell changed.
-template <bool kVec, bool kFwd>
+// One directional segmented min scan down every column: in -> out (which
+// may be `in`).  Fine: 0 restarts the scan, border columns kept; `changed`
+// (may be null) gets 1 when some cell changed.  Coarse: bit 24 (forward) or
+// 25 (backward) restarts it, empty cells scan as kInf and stay; `changed`
+// (may be null; then `orig` too) gets the number of cells whose output
+// differs from `orig`, the plane before the v-pass's forward launch.  A block
+// scans one tile of kTileRows x (32 * lanes' columns); tiles are numbered in
+// scan order (row of tiles, then column of tiles) by `status[0]`, an atomic
+// counter.  status: [counter, flag per tile], zero at launch; carry:
+// [aggregate per tile and column, inclusive carry per tile and column].
+template <bool kCoarse, bool kVec, bool kFwd>
 __global__ void __launch_bounds__(32 * kTileWarps, 32 / kTileWarps)
-vscan_tiles(const int32_t* in, int32_t* out, int32_t* changed, int32_t* status, int h, int w, int n_tc) {
+vscan_tiles(const int32_t* in, int32_t* out, int32_t* changed, int32_t* status, int32_t* carry, int h, int w,
+            int n_tc, const int32_t* __restrict__ orig) {
+  constexpr int kBit = kFwd ? kVf : kVb;
   constexpr int kLane = kVec ? 4 : 1;  // columns per lane
   constexpr int kTC = 32 * kLane;      // columns per tile
   __shared__ int s_tile;
@@ -383,7 +402,7 @@ vscan_tiles(const int32_t* in, int32_t* out, int32_t* changed, int32_t* status, 
   __shared__ int s_carry[kTC];
   const int n_tiles = gridDim.x;
   int* flags = status + 1;
-  int* agg = flags + n_tiles;
+  int* agg = carry;
   int* incl = agg + (size_t)n_tiles * kTC;
   const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
   if (t == 0) s_tile = atomicAdd(status, 1);
@@ -393,8 +412,9 @@ vscan_tiles(const int32_t* in, int32_t* out, int32_t* changed, int32_t* status, 
   const bool inplace = in == out;
 
   // Logical row l counts in scan order; its plane row is l or h - 1 - l.
-  // A cell outside the plane reads as kInf, the scan's identity; 0 (an
-  // unclaimed cell) restarts the scan with no value.
+  // A cell outside the plane reads as kInf, the scan's identity (no coarse
+  // reset bit is set in it); a fine 0 (an unclaimed cell) restarts the scan
+  // with no value.
   int cell[kWarpRows][kLane];
 #pragma unroll
   for (int k = 0; k < kWarpRows; ++k) {
@@ -421,8 +441,14 @@ vscan_tiles(const int32_t* in, int32_t* out, int32_t* changed, int32_t* status, 
 #pragma unroll
     for (int k = 0; k < kWarpRows; ++k) {
       const int c = cell[k][j];
-      a = c == 0 ? kInf : min(a, c);
-      r |= c == 0;
+      if constexpr (kCoarse) {
+        const bool rs = resets<true>(c, kBit);
+        a = rs ? value_of<true>(c) : min(a, value_of<true>(c));
+        r |= rs;
+      } else {
+        a = c == 0 ? kInf : min(a, c);
+        r |= c == 0;
+      }
     }
     s_pre[wid][lane * kLane + j] = a | (r ? kR : 0);
   }
@@ -465,6 +491,7 @@ vscan_tiles(const int32_t* in, int32_t* out, int32_t* changed, int32_t* status, 
 #pragma unroll
   for (int j = 0; j < kLane; ++j) f[j] = comb(s_carry[lane * kLane + j], s_pre[wid][lane * kLane + j]) & kVM;
   bool ch = false;
+  int n_ch = 0;
 #pragma unroll
   for (int k = 0; k < kWarpRows; ++k) {
     const int l = ti * kTileRows + wid * kWarpRows + k;
@@ -473,22 +500,38 @@ vscan_tiles(const int32_t* in, int32_t* out, int32_t* changed, int32_t* status, 
     bool diff = false;
 #pragma unroll
     for (int j = 0; j < kLane; ++j) {
-      const int c = cell[k][j], col = c0 + j;
-      f[j] = c == 0 ? kInf : min(f[j], c);
-      o[j] = (c == 0 || col == 0 || col == w - 1) ? c : f[j];
+      const int c = cell[k][j];
+      if constexpr (kCoarse) {
+        f[j] = resets<true>(c, kBit) ? value_of<true>(c) : min(f[j], value_of<true>(c));
+        o[j] = with_value<true>(c, f[j]);
+      } else {
+        const int col = c0 + j;
+        f[j] = c == 0 ? kInf : min(f[j], c);
+        o[j] = (c == 0 || col == 0 || col == w - 1) ? c : f[j];
+      }
       diff |= o[j] != c;
     }
     ch |= diff;
+    const size_t g = (size_t)(kFwd ? l : h - 1 - l) * w + c0;
     if (!inplace || diff) {
-      const size_t g = (size_t)(kFwd ? l : h - 1 - l) * w + c0;
       if constexpr (kVec) {
         *reinterpret_cast<int4*>(out + g) = make_int4(o[0], o[1], o[2], o[3]);
       } else {
         out[g] = o[0];
       }
     }
+    if (kCoarse && changed != nullptr) {
+#pragma unroll
+      for (int j = 0; j < kLane; ++j) n_ch += o[j] != orig[g + j];
+    }
   }
-  if (changed != nullptr && __syncthreads_or(ch) && t == 0) atomicOr(changed, 1);
+  if (changed == nullptr) return;
+  if constexpr (kCoarse) {
+    n_ch = __reduce_add_sync(0xffffffffu, n_ch);
+    if (lane == 0 && n_ch) atomicAdd(changed, n_ch);
+  } else {
+    if (__syncthreads_or(ch) && t == 0) atomicOr(changed, 1);
+  }
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -538,9 +581,15 @@ __device__ __forceinline__ int phase_of(const int32_t* p) {
 // stored) in steps of at most `rows_per_step` whole rows.  A step's span of
 // cells lies in ring buffer s % 3 at logical cell `phase + i`, so that its
 // 16-byte lines match the plane's; thread t owns logical cells [20t, 20t+20).
-// `viol` gets 1 when a claimed vertical pair off the border columns differs.
+// `flag` gets 1 when a claimed vertical pair off the border columns differs.
+// The coarse form (kCoarse) is the h-pass of a coarse round: a forward
+// segment restarts at a cell with bit 26, a backward one at a cell with bit
+// 27 (and both at a row's end, as each row is its own scan), empty cells
+// scan as kInf and stay, the high bits pass through; no shadow row and no
+// stencil: `flag` gets the number of cells whose value changed.
+template <bool kCoarse>
 __global__ void __launch_bounds__(1024)
-row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* viol, int h, int w,
+row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* flag, int h, int w,
          int rows_per_step, int band_rows) {
   extern __shared__ int4 ring4[];
   int* ring = reinterpret_cast<int*>(ring4);
@@ -550,7 +599,7 @@ row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* vio
   const int L = T * kCells;  // cells of one buffer
   const int G = rows_per_step;
   const int r0 = blockIdx.x * band_rows, r_end = min(h, r0 + band_rows);
-  const int rs = r0 > 0 ? r0 - 1 : 0;
+  const int rs = (r0 > 0 && !kCoarse) ? r0 - 1 : r0;
   const int n_steps = (r_end - rs + G - 1) / G;
 
   // Thread 0 fills buffer s % 3 for step s: the 16-byte-aligned body by
@@ -579,6 +628,7 @@ row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* vio
   asm volatile("cp.async.commit_group;" ::: "memory");
   __syncthreads();
   bool bad = false;
+  int n_ch = 0;
   for (int s = 0; s < n_steps; ++s) {
     if (tid == 0 && s + 1 < n_steps) issue(s + 1);
     asm volatile("cp.async.commit_group;" ::: "memory");
@@ -600,7 +650,7 @@ row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* vio
       m_in = hi_k > lo_k ? ((1u << hi_k) - 1u) & ~((1u << lo_k) - 1u) : 0u;
       m_first = (i0 <= 0 && -i0 < kCells) ? 1u << -i0 : 0u;
       m_last = (S - 1 - i0 >= 0 && S - 1 - i0 < kCells) ? 1u << (S - 1 - i0) : 0u;
-      m_keep = (a == 0 || a == h - 1) ? m_in : 0u;
+      m_keep = (!kCoarse && (a == 0 || a == h - 1)) ? m_in : 0u;
     } else {
       m_in = m_first = m_last = m_keep = 0;
       int col = i0, row = a;
@@ -614,7 +664,7 @@ row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* vio
           m_in |= 1u << k;
           if (col == 0) m_first |= 1u << k;
           if (col == w - 1) m_last |= 1u << k;
-          if (row == 0 || row == h - 1) m_keep |= 1u << k;
+          if (!kCoarse && (row == 0 || row == h - 1)) m_keep |= 1u << k;
         }
         if (++col == w) {
           col = 0;
@@ -641,13 +691,28 @@ row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* vio
     int af, ab;
     auto local = [&](auto plain_tag) {
       constexpr bool kPlain = decltype(plain_tag)::value;
+      if constexpr (kCoarse) {
+        // Resets from the cells' bits; cells outside the span reset both
+        // ways with no value, as the fine form's unclaimed cells do.
+        unsigned bf = 0, bb = 0;
 #pragma unroll
-      for (int k = 0; k < kCells; ++k) {
-        if (v[k] == 0 || (!kPlain && !((m_in >> k) & 1))) v[k] = kInf;
-        if (v[k] == kInf) m_inf |= 1u << k;
+        for (int k = 0; k < kCells; ++k) {
+          bf |= static_cast<unsigned>((v[k] >> kHf) & 1) << k;
+          bb |= static_cast<unsigned>((v[k] >> kHb) & 1) << k;
+          v[k] = (!kPlain && !((m_in >> k) & 1)) ? kInf : value_of<true>(v[k]);
+        }
+        const unsigned out_k = kPlain ? 0u : ~m_in & ((1u << kCells) - 1u);
+        rf = kPlain ? bf : bf | out_k | m_first;
+        rb = kPlain ? bb : bb | out_k | m_last;
+      } else {
+#pragma unroll
+        for (int k = 0; k < kCells; ++k) {
+          if (v[k] == 0 || (!kPlain && !((m_in >> k) & 1))) v[k] = kInf;
+          if (v[k] == kInf) m_inf |= 1u << k;
+        }
+        rf = kPlain ? m_inf : m_inf | m_first;
+        rb = kPlain ? m_inf : m_inf | m_last;
       }
-      rf = kPlain ? m_inf : m_inf | m_first;
-      rb = kPlain ? m_inf : m_inf | m_last;
       int f = kInf, b = kInf;
 #pragma unroll
       for (int k = 0; k < kCells; ++k) {
@@ -714,14 +779,31 @@ row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* vio
       F[k] = ((m_inf >> k) & 1) ? 0 : (((m_keep >> k) & 1) ? v[k] : o);
     }
     int4* mine = reinterpret_cast<int4*>(buf) + tid * (kCells / 4);
+    if constexpr (kCoarse) {
+      // The run-min merged into the cells, read again from the buffer.
+#pragma unroll
+      for (int q = 0; q < kCells / 4; ++q) {
+        const int4 x = own[q];
+        const int c[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = 4 * q + j;
+          F[k] = with_value<true>(c[j], F[k]);
+          n_ch += ((m_in >> k) & 1) && F[k] != c[j];
+        }
+      }
+    }
 #pragma unroll
     for (int q = 0; q < kCells / 4; ++q) mine[q] = make_int4(F[4 * q], F[4 * q + 1], F[4 * q + 2], F[4 * q + 3]);
 
-    const int lo = (s == 0 && r0 > 0) ? w : 0;  // the shadow row is not stored
+    const int lo = (!kCoarse && s == 0 && r0 > 0) ? w : 0;  // the shadow row is not stored
     int32_t* dst = out + (size_t)a * w;
     const int* cur = buf + ph;
     const int ph_prev = s > 0 ? phase_of(in + (size_t)(a - G) * w) : ph;
-    if (G == 1 && ph_prev == ph) {
+    if (kCoarse) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+    } else if (G == 1 && ph_prev == ph) {
       // One row per step, aligned alike in this buffer and the previous
       // one: each thread checks its own cells against the row above.
       if (s > 0) {
@@ -772,32 +854,59 @@ row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* vio
     }
   }
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-  if (__syncthreads_or(bad) && tid == 0) atomicOr(viol, 1);
+  if constexpr (kCoarse) {
+    n_ch = __reduce_add_sync(0xffffffffu, n_ch);
+    if (lane == 0 && n_ch) atomicAdd(flag, n_ch);
+  } else {
+    if (__syncthreads_or(bad) && tid == 0) atomicOr(flag, 1);
+  }
+}
+
+// Lets row_ring<kCoarse> take `smem` bytes of dynamic shared memory on
+// the current device; the attribute is set again only when a launch needs
+// more than it was last set to there.
+template <bool kCoarse>
+cudaError_t ring_smem(int smem) {
+  static int set_to[16] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 16 && set_to[dev] >= smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(row_ring<kCoarse>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && dev < 16) set_to[dev] = smem;
+  return e;
 }
 
 dim3 cell_grid(int h, int w) {
   return dim3((w + 255) / 256, h < 4096 ? h : 4096);
 }
 
-// The fine column scan: zero the status counter and flags, then one block
-// per tile.  `vec` asks for 16-byte access (w % 4 == 0, both planes 16-byte
-// aligned; refused otherwise).
-template <bool kFwd>
+// The column scan, one block per tile: with `zero`, the status counter and
+// flags are zeroed first (else they must be zero already); `carry` is
+// status + 1 + n_tiles when null.  `vec` asks for 16-byte access (w % 4 ==
+// 0, the planes 16-byte aligned; refused otherwise).
+template <bool kCoarse, bool kFwd>
 cudaError_t vscan(const int32_t* in, int32_t* out, int32_t* changed, int32_t* status, int h, int w,
-                  int vec, cudaStream_t st) {
+                  int vec, cudaStream_t st, const int32_t* orig = nullptr, int32_t* carry = nullptr,
+                  bool zero = true) {
   const int tc = vec ? 128 : 32;
   const int n_tc = (w + tc - 1) / tc;
   const long long n_tiles = (long long)((h + kTileRows - 1) / kTileRows) * n_tc;
   if (n_tiles > 0x7fffffff) return cudaErrorInvalidValue;
   if (vec && (w % 4 != 0 || reinterpret_cast<uintptr_t>(in) % 16 != 0 ||
-              reinterpret_cast<uintptr_t>(out) % 16 != 0))
+              reinterpret_cast<uintptr_t>(out) % 16 != 0 || reinterpret_cast<uintptr_t>(orig) % 16 != 0))
     return cudaErrorInvalidValue;
-  cudaError_t e = cudaMemsetAsync(status, 0, (size_t)(1 + n_tiles) * sizeof(int32_t), st);
-  if (e != cudaSuccess) return e;
+  if (carry == nullptr) carry = status + 1 + n_tiles;
+  if (zero) {
+    const cudaError_t e = cudaMemsetAsync(status, 0, (size_t)(1 + n_tiles) * sizeof(int32_t), st);
+    if (e != cudaSuccess) return e;
+  }
   if (vec) {
-    vscan_tiles<true, kFwd><<<(unsigned)n_tiles, 32 * kTileWarps, 0, st>>>(in, out, changed, status, h, w, n_tc);
+    vscan_tiles<kCoarse, true, kFwd><<<(unsigned)n_tiles, 32 * kTileWarps, 0, st>>>(in, out, changed, status, carry,
+                                                                                     h, w, n_tc, orig);
   } else {
-    vscan_tiles<false, kFwd><<<(unsigned)n_tiles, 32 * kTileWarps, 0, st>>>(in, out, changed, status, h, w, n_tc);
+    vscan_tiles<kCoarse, false, kFwd><<<(unsigned)n_tiles, 32 * kTileWarps, 0, st>>>(in, out, changed, status,
+                                                                                      carry, h, w, n_tc, orig);
   }
   return cudaGetLastError();
 }
@@ -816,7 +925,7 @@ extern "C" int rwt_fine_fwd_v(const void* in, void* out, void* flag, void* statu
   cudaError_t e = cudaMemsetAsync(flag, 0, sizeof(int32_t), st);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (h == 0 || w == 0) return 0;
-  return static_cast<int>(vscan<true>(static_cast<const int32_t*>(in), static_cast<int32_t*>(out),
+  return static_cast<int>(vscan<false, true>(static_cast<const int32_t*>(in), static_cast<int32_t*>(out),
                                       static_cast<int32_t*>(flag), static_cast<int32_t*>(status), h, w,
                                       vec, st));
 }
@@ -847,18 +956,18 @@ extern "C" int rwt_fine_bwd_vh(const void* in, void* scratch, void* out, void* f
              smem != kRing * threads * kCells * 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  e = vscan<false>(i, s, nullptr, static_cast<int32_t*>(status), h, w, vec, st);
+  e = vscan<false, false>(i, s, nullptr, static_cast<int32_t*>(status), h, w, vec, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (threads == 0) {
-    run_min_pass<false, false><<<(h + 7) / 8, dim3(kChunks, 8), 0, st>>>(s, o, nullptr, h, w);
+    run_min_pass<false><<<(h + 7) / 8, dim3(kChunks, 8), 0, st>>>(s, o, nullptr, h, w);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     violations<false><<<cell_grid(h, w), 256, 0, st>>>(o, f, h, w);
     return static_cast<int>(cudaGetLastError());
   }
-  e = cudaFuncSetAttribute(row_ring, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  e = ring_smem<false>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  row_ring<<<(h + band_rows - 1) / band_rows, threads, smem, st>>>(s, o, f, h, w, rows_per_step, band_rows);
+  row_ring<false><<<(h + band_rows - 1) / band_rows, threads, smem, st>>>(s, o, f, h, w, rows_per_step, band_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -877,7 +986,7 @@ int coarse_bwd_vh(const int32_t* in, int32_t* scratch, int32_t* out, int32_t* fl
   if (reach >= 0 && reach < w - 1) {
     hwin_pass<<<cell_grid(h, w), 256, 0, st>>>(scratch, out, h, w, reach);
   } else {
-    run_min_pass<true, false><<<(h + 7) / 8, dim3(kChunks, 8), 0, st>>>(scratch, out, nullptr, h, w);
+    run_min_pass<true><<<(h + 7) / 8, dim3(kChunks, 8), 0, st>>>(scratch, out, nullptr, h, w);
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -915,22 +1024,51 @@ extern "C" int rwt_coarse_bwd_vh(const void* in, void* scratch, void* out, void*
 }
 
 // c, scratch, out: (hc, w) int32 packed coarse planes; `out` may be `c`,
-// `scratch` aliases neither.  changed: one int32, zeroed here, then the
-// number of cells the v-pass and the h-pass changed.  One coarse round:
-// both passes, on `stream`; does not synchronise, returns
-// cudaGetLastError().
-extern "C" int rwt_coarse_round(const void* c, void* scratch, void* out,
-                                void* changed, int hc, int w, void* stream) {
+// `scratch` aliases neither.  One coarse round on `stream`: the v-pass as
+// two column scans (forward under bit 24 c -> scratch, backward under bit
+// 25 in place on scratch, counting against c), then the h-pass scratch ->
+// out.  status: [changed, the forward scan's counter and tile flags, the
+// backward scan's, the carries of one scan], 1 + 2 * (1 + n_tiles) + 2 *
+// n_tiles * tile_cols int32 (ops/scan_merge.py vscan_plan), of which all
+// but the carries are zeroed here by one memset; changed ends as the number
+// of cells the v-pass and the h-pass changed.  vec: as for rwt_fine_fwd_v
+// (for c and scratch).  The row plan (ops/scan_merge.py row_plan with
+// coarse=True): `threads` > 0 runs the ring row kernel, `threads` == 0
+// (rows wider than the ring) the chunked run-min.  Does not synchronise,
+// returns cudaGetLastError().
+extern "C" int rwt_coarse_round(const void* c, void* scratch, void* out, void* status, int hc, int w, int vec,
+                                int rows_per_step, int band_rows, int threads, int smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(changed, 0, sizeof(int32_t), st);
+  int32_t* ch = static_cast<int32_t*>(status);
+  const int tc = vec ? 128 : 32;
+  const long long n_tiles = (long long)((hc + kTileRows - 1) / kTileRows) * ((w + tc - 1) / tc);
+  if (n_tiles > 0x3fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaMemsetAsync(ch, 0, (size_t)(3 + 2 * n_tiles) * sizeof(int32_t), st);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (hc == 0 || w == 0) return 0;
-  int32_t* ch = static_cast<int32_t*>(changed);
-  run_min_pass<true, true><<<(w + 31) / 32, dim3(32, kChunks), 0, st>>>(
-      static_cast<const int32_t*>(c), static_cast<int32_t*>(scratch), ch, hc, w);
-  e = cudaGetLastError();
+  if (threads == 0) {
+    if (w <= kRowCap) return static_cast<int>(cudaErrorInvalidValue);
+  } else if (w > kRowCap || threads % 32 != 0 || threads > 1024 || rows_per_step < 1 || band_rows < 1 ||
+             (long long)rows_per_step * w + 3 > (long long)threads * kCells ||
+             smem != kRing * threads * kCells * 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int32_t* i = static_cast<const int32_t*>(c);
+  int32_t* s = static_cast<int32_t*>(scratch);
+  int32_t* o = static_cast<int32_t*>(out);
+  int32_t* stat_f = ch + 1;
+  int32_t* stat_b = stat_f + 1 + n_tiles;
+  int32_t* carry = stat_b + 1 + n_tiles;
+  e = vscan<true, true>(i, s, nullptr, stat_f, hc, w, vec, st, nullptr, carry, false);
   if (e != cudaSuccess) return static_cast<int>(e);
-  run_min_pass<true, false><<<(hc + 7) / 8, dim3(kChunks, 8), 0, st>>>(
-      static_cast<const int32_t*>(scratch), static_cast<int32_t*>(out), ch, hc, w);
+  e = vscan<true, false>(s, s, ch, stat_b, hc, w, vec, st, i, carry, false);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (threads == 0) {
+    run_min_pass<true><<<(hc + 7) / 8, dim3(kChunks, 8), 0, st>>>(s, o, ch, hc, w);
+    return static_cast<int>(cudaGetLastError());
+  }
+  e = ring_smem<true>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  row_ring<true><<<(hc + band_rows - 1) / band_rows, threads, smem, st>>>(s, o, ch, hc, w, rows_per_step, band_rows);
   return static_cast<int>(cudaGetLastError());
 }

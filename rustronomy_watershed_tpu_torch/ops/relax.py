@@ -21,7 +21,8 @@ the labels may not.
 
 Layers: ``relax_block`` (one call = exactly ``steps`` global Jacobi sweeps,
 csrc/relax.cu on CUDA tensors, ``relax_block_plain`` on CPU tensors) ->
-``relax_fixed_point`` (host loop until a call's last sweep changed nothing)
+``relax_fixed_point`` (host loop until a call's last sweep changed nothing;
+on the card the calls after the first skip quiet tiles)
 -> ``relax_packed_planes`` / ``relax_transform_packed`` (pack + fixed point
 + the ``max_water_level`` mask).
 
@@ -50,21 +51,47 @@ ANY, LAST, SAT = 0, 1, 2  # indices into a call's flags tensor
 N_UNCL, ANY_BORDER, GMIN = 3, 4, 5  # ... and its statistics (stats=True)
 
 _BIG_LAB = 2**30
-# Shared memory one block may take (H100: 227 KB, less the kernel's 16
-# static bytes) and what a window cell costs there: key + label,
-# double-buffered, int32, plus the u8 value.
-_SMEM_BYTES = 232448 - 16
-_CELL_BYTES = 17
-_TILES = (64, 32, 16, 8)
+# The kernel's launch plan (csrc/relax.cu): a block is one warp of 4-column
+# strips wide (a 128-column window) and _WARPS warps deep, each thread
+# holding _STRIP_ROWS rows of its strip in registers; its launch bounds
+# allow 512 threads at 8 rows (128 registers a thread).  A block exchanges
+# its strips' top and bottom rows in shared memory: 2 sweep parities x 4
+# rows (key and label, top and bottom) x 128 int32 per warp, 64 KB.
+_WIN_X = 128
+_STRIP_ROWS = 8
+_WARPS = 16
+_MAX_THREADS = 512
 
 
-def kernel_tile(steps: int) -> int:
-    """Centre tile edge for the CUDA kernel: the largest of _TILES whose
-    (tile + 2*steps)^2 window fits one block's shared memory."""
-    for t in _TILES:
-        if (t + 2 * steps) ** 2 * _CELL_BYTES <= _SMEM_BYTES:
-            return t
-    raise ValueError(f"steps={steps} too large for a shared-memory window")
+def relax_plan(h: int, w: int, steps: int) -> dict:
+    """The relax kernel's launch: ``rows`` per thread strip, ``warps`` per
+    block (``threads``), centre tiles of ``tile_y`` x ``tile_x`` (the
+    window less ``steps`` cells on each side), a ``grid`` of ``(gy, gx)``
+    tiles, ``smem`` bytes of row exchange, and ``skip``: whether
+    relax_fixed_point may skip quiet tiles (a call's dependency cone, steps
+    cells, must stay inside the 8 neighbour tiles)."""
+    rows, warps = _STRIP_ROWS, _WARPS
+    if rows != 8 or not 1 <= 32 * warps <= _MAX_THREADS:
+        raise ValueError(f"no relax kernel for {rows}-row strips in {warps} warps")
+    tile_x, tile_y = _WIN_X - 2 * steps, warps * rows - 2 * steps
+    if steps < 1 or min(tile_x, tile_y) < 1:
+        raise ValueError(f"steps={steps}: a {warps * rows}x{_WIN_X} window takes 1 <= steps < {min(warps * rows, _WIN_X) // 2}")
+    smem = 2 * warps * 4 * _WIN_X * 4
+    grid = (-(-h // tile_y), -(-w // tile_x))
+    return {
+        "rows": rows, "warps": warps, "threads": 32 * warps, "tile_y": tile_y, "tile_x": tile_x,
+        "grid": grid, "n_tiles": grid[0] * grid[1], "smem": smem, "skip": steps <= min(tile_y, tile_x),
+    }
+
+
+def quiet_tiles(changed):
+    """The tiles a call may skip, from the previous call's ``(gy, gx)`` tile
+    flags (1: a centre cell changed; 0 or 2: none did): those whose 3x3
+    neighbourhood holds no 1.  Plain PyTorch, the rule csrc/relax.cu
+    applies per block."""
+    hot = torch.nn.functional.pad((changed == 1).to(torch.int8)[None, None], (1, 1, 1, 1))
+    near = torch.nn.functional.max_pool2d(hot.float(), 3, stride=1)[0, 0]
+    return near == 0
 
 
 def _key_consts(d_bits):
@@ -118,9 +145,32 @@ def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None, stats=F
     return key, lab, flags
 
 
-def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False):
+class _Tiles:
+    """Tile state of a skipping fixed point on the card: the per-tile change
+    flags of the last two calls (ping-pong), the per-tile partials of the
+    saturation bit and the statistics, and one flag buffer per call with a
+    slot for the count of skipped tiles after the flags."""
+
+    def __init__(self, plan: dict, n_flags: int, device):
+        self.plan, self.n_flags, self.calls = plan, n_flags, 0
+        self.chg = torch.zeros((2, plan["n_tiles"]), dtype=torch.int32, device=device)
+        self.part = torch.empty((plan["n_tiles"], 4), dtype=torch.int32, device=device)
+        self.buf = torch.empty((n_flags + 1,), dtype=torch.int32, device=device)
+
+    def next_call(self):
+        """``(chg_prev or None, chg)`` for the next call: skipping needs the
+        previous call's flags and a plan whose tiles hold a call's cone."""
+        k, self.calls = self.calls, self.calls + 1
+        prev = self.chg[(k + 1) % 2] if k > 0 and self.plan["skip"] else None
+        return prev, self.chg[k % 2]
+
+
+def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, tiles=None):
     """Launch csrc/relax.cu: ``steps`` Jacobi sweeps of CUDA planes into
-    ``out`` (fresh planes when None; never the input planes)."""
+    ``out`` (fresh planes when None; never the input planes).  ``tiles``
+    (relax_fixed_point's state) lets the call skip the tiles that the
+    previous call left quiet, and counts them after the flags in
+    ``tiles.buf``."""
     d_bits, _, _ = _key_consts(d_bits)
     h, w = key.shape
     if v.dtype != torch.uint8 or key.dtype != torch.int32 or lab.dtype != torch.int32:
@@ -137,15 +187,29 @@ def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=
         raise ValueError("relax kernel output planes must not alias its inputs")
     if steps < 1:
         raise ValueError("steps must be >= 1")
-    flags = torch.empty((6 if stats else 3,), dtype=torch.int32, device=key.device)
+    n_flags = 6 if stats else 3
+    if tiles is None:
+        plan = relax_plan(h, w, steps)
+        buf = torch.empty((n_flags,), dtype=torch.int32, device=key.device)
+        part = torch.empty((plan["n_tiles"], 4), dtype=torch.int32, device=key.device)
+        prev = chg = skipped = None
+    else:
+        plan, buf, part = tiles.plan, tiles.buf, tiles.part
+        if tiles.n_flags != n_flags or tuple(plan["grid"]) != relax_plan(h, w, steps)["grid"]:
+            raise ValueError("relax tile state does not match this call")
+        prev, chg = tiles.next_call()
+        skipped = buf[n_flags:]
+    vec = w % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in planes[1:]) and v.data_ptr() % 4 == 0
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _ext.lib().rwt_relax(
-        v.data_ptr(), key.data_ptr(), lab.data_ptr(), key_out.data_ptr(),
-        lab_out.data_ptr(), flags.data_ptr(), h, w, steps, d_bits,
-        kernel_tile(steps), int(stats), _ext.stream_ptr(key),
+        v.data_ptr(), key.data_ptr(), lab.data_ptr(), key_out.data_ptr(), lab_out.data_ptr(),
+        buf.data_ptr(), ptr(prev), ptr(chg), part.data_ptr(), ptr(skipped), h, w, steps, d_bits,
+        plan["rows"], plan["warps"], plan["tile_y"], plan["tile_x"], int(stats), int(vec),
+        _ext.stream_ptr(key),
     )
     _ext.check(err, "rwt_relax")
     _ext.launches["relax"] += 1
-    return key_out, lab_out, flags
+    return key_out, lab_out, buf[:n_flags]
 
 
 def relax_block(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False):
@@ -162,7 +226,7 @@ def relax_block(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False):
     raise ValueError(f"unsupported device {key.device}")
 
 
-def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, stats=False):
+def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, stats=False, on_call=None):
     """Iterate relax_block until a call's last sweep changed nothing.
 
     ``key``/``lab`` serve as one of the two ping-pong buffers and are
@@ -171,13 +235,34 @@ def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, s
     certifying call's ``(n_unclaimed_interior, any_claimed_border,
     min_claimed_interior_label)``: its output planes are the fixed point, so
     these are the fixed point's statistics.  The host reads one small flag
-    tensor per call.
+    tensor per call.  ``on_call(src, dst, flags, skipped)``, when given,
+    sees every call: its input and output planes, its flags and the number
+    of tiles it skipped.
+
+    On the card a call skips the tiles whose 3x3 neighbourhood of tiles
+    changed no centre cell in the previous call (``quiet_tiles``), which is
+    exact under the ping-pong.  Such a tile's input equals the previous
+    call's input on its whole dependency cone, so its output equals the
+    previous call's output there, which equals its input (it did not
+    change).  The destination buffer is the previous call's source, which
+    still holds that input.  A skipped tile adds nothing to the change
+    flags (it would change nothing); its saturation bit and statistics are
+    the partials it wrote when it last ran, on the same planes.
     """
     src = (key, lab)
     dst = (torch.empty_like(key), torch.empty_like(lab))
+    tiles = None
+    if key.is_cuda:
+        tiles = _Tiles(relax_plan(*key.shape, steps), 6 if stats else 3, key.device)
     while True:
-        k2, l2, flags = relax_block(v, *src, steps, d_bits, out=dst, stats=stats)
-        f = flags.tolist()
+        if tiles is None:
+            k2, l2, flags = relax_block(v, *src, steps, d_bits, out=dst, stats=stats)
+            f, skipped = flags.tolist(), 0
+        else:
+            k2, l2, flags = relax_block_kernel(v, *src, steps, d_bits, out=dst, stats=stats, tiles=tiles)
+            *f, skipped = tiles.buf.tolist()
+        if on_call is not None:
+            on_call(src, (k2, l2), flags, skipped)
         src, dst = (k2, l2), src
         if not f[LAST]:
             if stats:

@@ -27,7 +27,8 @@ Three engines, bit-identical labels:
   coarse cell with four scan-reset bits, rounds run to the fixed point,
   ``coarse_broadcast`` (csrc/coarse_broadcast.cu) expands the result back to
   the fine plane.  The rounds are ``coarse_round`` (csrc/scan_round.cu,
-  the port's schedule) by default, or with ``RWT_COARSE_MULTI=0`` the JAX
+  the port's schedule: column tiles with a look-back, then the ring row
+  kernel) by default, or with ``RWT_COARSE_MULTI=0`` the JAX
   package's legacy two-pass rounds ``cfwd_v`` / ``cbwd_vh``
   (csrc/scan_round.cu, coarse encoding), whose h-scans are windowed to
   ``RWT_COARSE_HWIN`` lanes on most rounds.
@@ -294,17 +295,26 @@ def coarse_round_plain(c, *, out=None, scratch=None):
 
 
 def coarse_round_kernel(c, *, out=None, scratch=None):
-    """Launch the coarse round of csrc/scan_round.cu: the v-pass from ``c`` into ``scratch``,
-    then the h-pass into ``out`` (which may be ``c`` itself)."""
+    """Launch the coarse round of csrc/scan_round.cu: the v-pass as two
+    column scans from ``c`` into ``scratch``, then the h-pass into ``out``
+    (which may be ``c`` itself) on the row route ``row_plan`` picks, counted
+    as ``coarse_round_ring`` or ``coarse_round_chunked``."""
     out, scratch = _round_planes(c, out, scratch)
     hc, w = c.shape
-    changed = torch.empty((1,), dtype=torch.int32, device=c.device)
+    vec = _vec(w, c, scratch)
+    plan = row_plan(hc, w, _sm_count(c.device), coarse=True)
+    vp = vscan_plan(hc, w, vec)
+    # [changed, the two column scans' counters and tile flags, one carry area]
+    status = torch.empty((1 + 2 * (1 + vp["n_tiles"]) + vp["status_ints"] - 1 - vp["n_tiles"],),
+                         dtype=torch.int32, device=c.device)
     err = _ext.lib().rwt_coarse_round(
-        c.data_ptr(), scratch.data_ptr(), out.data_ptr(), changed.data_ptr(), hc, w,
-        _ext.stream_ptr(c),
+        c.data_ptr(), scratch.data_ptr(), out.data_ptr(), status.data_ptr(), hc, w, int(vec),
+        plan["rows_per_step"], plan["band_rows"], plan["threads"], plan["smem"], _ext.stream_ptr(c),
     )
+    changed = status[:1]
     _ext.check(err, "rwt_coarse_round")
     _ext.launches["coarse_round"] += 1
+    _ext.launches[f"coarse_round_{plan['route']}"] += 1
     return out, changed
 
 
@@ -455,6 +465,10 @@ _ROW_CAP = 18432  # kRowCap: the widest row the ring row kernel takes
 _ROW_CELLS = 20  # kCells: cells a row-kernel thread owns
 _ROW_RING = 3  # kRing: row buffers in shared memory
 _MIN_BAND = 32  # rows per block at least, so the shadow row costs < ~3%
+_COARSE_STEP = 4096  # cells per ring step of the coarse h-pass: about 220 threads a block
+_SM_SMEM = 233472  # shared memory of one SM (Hopper: 228 KB) ...
+_BLOCK_SMEM = 1024 + 512  # ... of which a block also takes the system's 1 KB and its static arrays
+_SM_THREADS = 2048
 
 
 def vscan_plan(h: int, w: int, vec: bool) -> dict:
@@ -470,21 +484,30 @@ def vscan_plan(h: int, w: int, vec: bool) -> dict:
     }
 
 
-def row_plan(h: int, w: int, n_sm: int) -> dict:
-    """The fine row launch of ``bwd_vh``: ``route`` ``"ring"`` (rows of at
-    most ``_ROW_CAP`` cells) with ``rows_per_step`` whole rows per ring
-    buffer, a block per ``band_rows`` rows (about one band per SM, at least
-    ``_MIN_BAND`` rows and one step), ``threads`` per block and ``smem``
-    bytes of ring; or ``"chunked"`` for wider rows."""
+def row_plan(h: int, w: int, n_sm: int, coarse: bool = False) -> dict:
+    """The row launch of ``bwd_vh`` and, with ``coarse``, of the coarse
+    round's h-pass: ``route`` ``"ring"`` (rows of at most ``_ROW_CAP``
+    cells) with ``rows_per_step`` whole rows per ring buffer, a block per
+    ``band_rows`` rows, ``threads`` per block and ``smem`` bytes of ring; or
+    ``"chunked"`` for wider rows.  The fine kernel fills its buffer
+    (about one band per SM, at least ``_MIN_BAND`` rows, so that the shadow
+    row costs little).  The coarse one has no shadow row: it takes steps of
+    about ``_COARSE_STEP`` cells, so that several blocks share an SM, and
+    bands that spread over all of them."""
     if w > _ROW_CAP:
         return {"route": "chunked", "rows_per_step": 0, "band_rows": 0, "n_bands": 0, "threads": 0, "smem": 0}
-    g = min(h, _ROW_CAP // w)
-    band = max(-(-h // n_sm), _MIN_BAND, g)
+    g = min(h, max(1, _COARSE_STEP // w) if coarse else _ROW_CAP // w)
     owners = -(-(g * w + 3) // _ROW_CELLS)  # a step's cells, up to 3 before its first 16-byte line
     threads = 32 * -(-owners // 32)
+    smem = _ROW_RING * threads * _ROW_CELLS * 4
+    if coarse:
+        per_sm = max(1, min(_SM_SMEM // (smem + _BLOCK_SMEM), _SM_THREADS // threads))
+        band = max(-(-h // (n_sm * per_sm)), g)
+    else:
+        band = max(-(-h // n_sm), _MIN_BAND, g)
     return {
         "route": "ring", "rows_per_step": g, "band_rows": band, "n_bands": -(-h // band),
-        "threads": threads, "smem": _ROW_RING * threads * _ROW_CELLS * 4,
+        "threads": threads, "smem": smem,
     }
 
 

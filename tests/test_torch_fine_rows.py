@@ -159,3 +159,36 @@ def test_vec_needs_width_and_alignment():
     x = torch.zeros((4, 8), dtype=torch.int32)
     assert sm._vec(8, x) and not sm._vec(6, x)
     assert not sm._vec(8, torch.zeros(40, dtype=torch.int32)[1:33].view(4, 8))  # one int off its line
+
+
+COARSE_ROW_CASES = [
+    (2048, 4096, 132), (8192, 16384, 132), (1024, 16384, 132), (4501, 700, 132), (512, 3, 132), (1, 5, 132),
+    (1, 18432, 132), (2, 18433, 132), (150, 18440, 132), (2048, 4096, 114), (501, 1031, 78),
+]
+
+
+@pytest.mark.parametrize("h,w,n_sm", COARSE_ROW_CASES, ids=[f"{h}x{w}@{n}" for h, w, n in COARSE_ROW_CASES])
+def test_row_plan_coarse(h, w, n_sm):
+    """The coarse round's h-pass: the ring below the cap, the chunked route
+    above; steps of about _COARSE_STEP cells (one row when the row is
+    longer), no shadow row, every row stored once, blocks that fit an SM
+    together and spread over all of them."""
+    plan = sm.row_plan(h, w, n_sm, coarse=True)
+    if w > sm._ROW_CAP:
+        assert plan["route"] == "chunked" and plan["threads"] == 0
+        return
+    assert plan["route"] == "ring"
+    g, band, threads = plan["rows_per_step"], plan["band_rows"], plan["threads"]
+    assert g == min(h, max(1, sm._COARSE_STEP // w))
+    assert g * w + 3 <= threads * sm._ROW_CELLS and threads % 32 == 0 and threads <= 1024
+    assert threads - 32 < -(-(g * w + 3) // sm._ROW_CELLS)
+    assert plan["smem"] == 3 * threads * sm._ROW_CELLS * 4 <= SMEM_LIMIT
+    per_sm = min(sm._SM_SMEM // (plan["smem"] + sm._BLOCK_SMEM), sm._SM_THREADS // threads)
+    assert per_sm >= 1 and band >= g
+    assert plan["n_bands"] <= max(n_sm * per_sm, 1) and plan["n_bands"] == -(-h // band)
+    # Bands of whole steps from their own first row: every row once.
+    stored = np.zeros(h, np.int64)
+    for b in range(plan["n_bands"]):
+        stored[b * band : min(h, (b + 1) * band)] += 1
+    assert (stored == 1).all()
+    assert sm.row_plan(h, w, n_sm)["route"] == "ring"  # the fine plan takes the same route

@@ -363,3 +363,88 @@ def test_fine_scans_across_lookback_tiles(cuda, shape):
         y[h - r, c], y[h - r - 1, c] = 5, 9  # backward: 9 becomes 5 across the tile boundary
         _assert_same(sm.bwd_vh_kernel(y), sm.bwd_vh_plain(y))
         assert sm.bwd_vh_kernel(y)[0][h - r - 1, c].item() == 5
+
+
+def _hold_calls(v, steps, stats, log):
+    """An ``on_call`` for relax_fixed_point: each call's output planes and
+    flags equal the twin's call on the same input planes."""
+
+    def on_call(src, dst, flags, skipped):
+        _assert_same((*dst, flags), relax.relax_block_plain(v, *src, steps, stats=stats))
+        log.append(skipped)
+
+    return on_call
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("shape", [(5, 7), (130, 257), (1023, 1031), (300, 2048)])
+def test_relax_fixed_point_skipping_matches_twin(cuda, shape, stats):
+    """The skipping fixed point on the card: every call equals the twin's
+    call from the same input (planes, flags, statistics), and the result
+    equals the twin's fixed point; with steps past the tile (45) nothing is
+    skipped."""
+    img = torch.from_numpy(_field(shape, 254, seed=shape[1])).to(cuda)
+    v, key, lab, _ = pack.pack_kernel(img)
+    want = relax.relax_fixed_point(v.cpu(), key.cpu(), lab.cpu(), stats=stats)
+    for steps in (relax.DEFAULT_STEPS, 45):
+        log = []
+        _ext.reset_launches()
+        got = relax.relax_fixed_point(v, key.clone(), lab.clone(), steps=steps, stats=stats,
+                                      on_call=_hold_calls(v, steps, stats, log))
+        assert _ext.launches["relax"] == _ext.launches["relax_plain"] == len(log)  # the twin's calls: the check's
+        assert log[0] == 0 and (relax.relax_plan(*shape, steps)["skip"] or not any(log))
+        _assert_same(got[:2], [t.to(cuda) for t in want[:2]])
+        assert got[2:] == want[2:]
+
+
+def test_relax_fixed_point_skips_quiet_tiles(cuda):
+    """A fixed point with a 40 x 40 hole cut in one corner tile (cells back
+    to unclaimed, more than one call to refill): the second call skips every
+    tile away from it, and each call still equals the twin's."""
+    img = torch.from_numpy(_field((1024, 1024), 254, seed=7)).to(cuda)
+    v, key, lab, _ = pack.pack_kernel(img)
+    key, lab, _ = relax.relax_fixed_point(v, key, lab)
+    key, lab = key.clone(), lab.clone()
+    key[5:45, 5:45], lab[5:45, 5:45] = relax._key_consts(None)[2], 0
+    log = []
+    got = relax.relax_fixed_point(v, key.clone(), lab.clone(), stats=True,
+                                  on_call=_hold_calls(v, relax.DEFAULT_STEPS, True, log))
+    plan = relax.relax_plan(1024, 1024, relax.DEFAULT_STEPS)
+    assert len(log) >= 3 and log[0] == 0 and log[1] >= plan["n_tiles"] - 4, (log, plan)
+    want = relax.relax_fixed_point(v.cpu(), key.cpu(), lab.cpu(), stats=True)
+    _assert_same(got[:2], [t.to(cuda) for t in want[:2]])
+    assert got[2:] == want[2:]
+
+
+def _unaligned(x):
+    """A contiguous copy of ``x`` one int32 past a 16-byte line."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (1023, 1031), (33, 3), (8400, 700), (300, 18440), "unaligned"])
+def test_coarse_round_routes_match_twin(cuda, shape):
+    """The coarse round, round by round to the fixed point: plane and change
+    count equal the twin's, on the row route the plan names (300 x 18440:
+    rows past the ring, the chunked route; an unaligned plane: the scalar
+    column scan)."""
+    lab = _relaxed_labels((130, 260) if shape == "unaligned" else shape, seed=11)
+    c = sm.coarsen_kernel(lab)
+    if shape == "unaligned":
+        c = _unaligned(c)
+        assert not sm._vec(c.shape[1], c)
+    route = "chunked" if c.shape[1] > sm._ROW_CAP else "ring"
+    scratch, rounds = torch.empty_like(c), 0
+    _ext.reset_launches()
+    while True:
+        want = sm.coarse_round_plain(c)
+        got = sm.coarse_round_kernel(c, out=c, scratch=scratch)
+        _assert_same(got, want)
+        rounds += 1
+        if got[1].item() == 0:
+            break
+        assert rounds < 10000
+    assert _ext.launches["coarse_round"] == _ext.launches[f"coarse_round_{route}"] == rounds
+    _assert_same([sm.coarse_broadcast_kernel(c.contiguous(), lab)], [sm.component_min_labels_plain(lab)])

@@ -190,9 +190,11 @@ def test_relax_dispatch_and_fixed_point_buffers():
     assert lab0.tolist() == paint_seeds(img.shape, [(3, 3), (8, 9)]).tolist()
     with pytest.raises(ValueError, match="d_bits"):
         relax.relax_block(v, key, lab, 1, d_bits=24)
-    assert relax.kernel_tile(8) == 64 and relax.kernel_tile(26) == 64 and relax.kernel_tile(27) == 32
+    plan = relax.relax_plan(4096, 4096, 8)
+    assert (plan["tile_y"], plan["tile_x"]) == (plan["warps"] * plan["rows"] - 16, 112) and plan["skip"]
+    assert relax.relax_plan(100, 100, 27)["tile_x"] == 74
     with pytest.raises(ValueError, match="steps"):
-        relax.kernel_tile(60)
+        relax.relax_plan(100, 100, 64)
 
 
 # The JAX merging path's relax (stats-only epilogue), jitted so the fields of

@@ -30,7 +30,8 @@ CUTS = [
     ('WIDE = (2048, BIG)', 'WIDE = (64, BIG)'),
     ('TALL = (9001, 700)', 'TALL = (301, 70)'),
     ('PAST_CAP = (300, 18440)', 'PAST_CAP = (7, 18440)'),
-    ('    split = {}\n', '    split = {"column scan": 1.0, "row kernel": 1.0}  # no device trace on the CPU\n'),
+    ('    split, rsplit = {}, {}\n', '    split, rsplit = {"column scan": 1.0, "row kernel": 1.0}, '
+     '{"v-pass forward": 1.0, "v-pass backward": 1.0, "h-pass": 1.0}  # no device trace on the CPU\n'),
     ('(1024, 1024)', '(512, 512)'),
     ('0, 1024, 60', '0, 512, 60'),
     ('integers(1, 1023, (40, 2))', 'integers(1, 511, (40, 2))'),
@@ -78,6 +79,14 @@ def _fake_kernels():
         return bwd_vh(y, **kw)
 
     sm.bwd_vh_kernel = bwd_vh_routed
+    coarse_round = sm.coarse_round_kernel
+
+    def coarse_round_routed(c, **kw):
+        _ext.launches[f"coarse_round_{sm.row_plan(*c.shape, 132, coarse=True)['route']}"] += 1
+        return coarse_round(c, **kw)
+
+    sm.coarse_round_kernel = coarse_round_routed
+    sm._sm_count = lambda dev: 132
     # The cut BIG x BIG field keeps the full size's label bound, so that it
     # takes the fine tail as 16384^2 does.
     bound = pipeline.max_seed_count
