@@ -91,7 +91,7 @@ def main() -> int:
     from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
-    from torch_fields import serpentine  # NumPy only
+    from torch_fields import plateau, seed_lattice, serpentine  # NumPy only
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -117,17 +117,24 @@ def main() -> int:
         "uniform 63x97": rng.integers(0, 256, (63, 97)).astype(np.uint8),
         "uniform 1024^2": rng.integers(0, 256, (1024, 1024)).astype(np.uint8),
         "10% 255-dots 4096^2": dots,
-        "plateau 0..3 1024^2": rng.integers(0, 4, (1024, 1024)).astype(np.uint8),
+        "plateau 0..3 1024^2": plateau((1024, 1024), 3),
+        f"seed lattice {SIDE}^2": seed_lattice((SIDE, SIDE)),
+        f"uniform 517x{BIG}": rng.integers(0, 256, (517, BIG)).astype(np.uint8),
     }
     pack_err = 0
     for label, a in fields.items():
         img = to_dev(a)
-        got, want = pack.pack_kernel(img), pack.pack_plain(img)
+        route = pack.pack_plan(*a.shape)["route"]
+        _ext.reset_launches()
+        got = pack.pack_kernel(img)
+        check(_ext.launches[f"pack_{route}"] == 1, f"pack took the {route} route on {label}")
+        want = pack.pack_plain(img)
         torch.cuda.synchronize()
         err = max_err(got, want)
         check(err == 0, f"pack kernel == twin on {label}")
         pack_err = max(pack_err, err)
-        print(f"[3 pack] {label}: bit-equal to twin, {int(got[3])} seeds")
+        print(f"[3 pack] {label}: bit-equal to twin (route {route}), {int(got[3])} seeds")
+    del img, got, want
 
     # -- 4: relax kernel against its twin, statistics included ----------------
     img = to_dev(np.random.default_rng(0).integers(0, 254, (SIDE, SIDE)).astype(np.uint8))
@@ -259,6 +266,7 @@ def main() -> int:
     launches = dict(_ext.launches)
     check(launches["pack"] > 0 and launches["relax"] > 0, "e2e launched both kernels")
     check(launches["pack_plain"] == 0 and launches["relax_plain"] == 0, "no plain twin on the main path")
+    check(launches["pack_vec"] == 1, "e2e took the 16-byte band route of pack")
     seeds = ws.find_local_minima(img)
     lab_seeds = to_dev(paint_seeds(tuple(img.shape), seeds))
     want, _ = priority.relax_transform(img, lab_seeds)
@@ -347,11 +355,14 @@ def main() -> int:
         """The coarse tail through the kernels, every round held against the
         twin (plane and change count; the twin runs first, as the round
         writes over its input); returns the rounds and the row route."""
+        croute = sm.coarsen_plan(*lab.shape, sm._vec(lab.shape[1], lab))["route"]
+        _ext.reset_launches()
         c = sm.coarsen_kernel(lab)
+        check(_ext.launches[f"coarsen_{croute}"] == 1, f"coarsen took the {croute} route on {label}")
         err = max_err([c], [sm.coarsen_plain(lab)])
         check(err == 0, f"coarsen kernel == twin on {label}")
         coarse_err["coarsen"] = max(coarse_err["coarsen"], err)
-        route = sm.row_plan(*c.shape, sm._sm_count(dev), coarse=True)["route"]
+        route = sm.row_plan(*c.shape, _ext.sm_count(dev), coarse=True)["route"]
         scratch, rounds = torch.empty_like(c), 0
         _ext.reset_launches()
         while True:
@@ -372,15 +383,17 @@ def main() -> int:
         check(err == 0, f"coarse broadcast kernel == twin on {label}")
         coarse_err["coarse_broadcast"] = max(coarse_err["coarse_broadcast"], err)
         check(torch.equal(fine, sm.component_min_labels_plain(lab)), f"coarse tail == oracle on {label}")
-        return rounds, route
+        return rounds, route, croute
 
-    coarse_routes = set()
+    coarse_routes, coarsen_routes = set(), set()
     for label, lab in coarse_fields.items():
-        rounds, route = coarse_tail_against_twins(label, lab)
+        rounds, route, croute = coarse_tail_against_twins(label, lab)
         coarse_routes.add(route)
-        print(f"[8 coarse] {label}: coarsen, {rounds} rounds (row route {route}) and broadcast bit-equal to their "
-              "twins; tail == oracle")
+        coarsen_routes.add(croute)
+        print(f"[8 coarse] {label}: coarsen (route {croute}), {rounds} rounds (row route {route}) and broadcast "
+              "bit-equal to their twins; tail == oracle")
     check(coarse_routes == {"ring", "chunked"}, "both row routes of the coarse round ran")
+    check(coarsen_routes == {"vec", "cells"}, "both routes of coarsen ran")
 
     # -- 9: the merging public API on the goldens ------------------------------
     _ext.reset_launches()
@@ -415,6 +428,8 @@ def main() -> int:
         tail = route == "merge_tail"
         for k in ("coarsen", "coarse_round", "coarse_broadcast"):
             check((counts[k] > 0) == tail, f"{k} launched iff the tail ran ({label})")
+        check(counts["coarsen_vec"] == counts["coarsen"] and counts["pack_vec"] == 1,
+              f"{label} merging e2e took the vector routes of pack and coarsen")
         check(counts["pack"] == 1 and counts["relax"] > 0, f"{label} merging e2e launched pack and relax")
         check(torch.equal(got, sm.component_min_labels_plain(seg)), f"{label} merging e2e == exact engine + oracle")
         merge_runs[label] = counts
@@ -718,6 +733,7 @@ def main() -> int:
             check(torch.equal(got, want), f"{BIG}^2 {label} {variant} e2e == exact engine" + (" + oracle" if merging else ""))
             check(sum(counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, f"no plain twin on the {BIG}^2 {label} {variant} e2e")
             check(counts["pack"] == 1 and counts["relax"] > 0, f"{BIG}^2 {label} {variant} e2e launched pack and relax")
+            check(counts["pack_vec"] == 1, f"{BIG}^2 {label} {variant} e2e took the 16-byte band route of pack")
             if merging:
                 tail = label == "10% dots"
                 check(counts["merge_tail" if tail else "merge_shortcut"] == 1, f"{BIG}^2 {label} merging route")
@@ -770,10 +786,11 @@ def main() -> int:
     check(sum(wide_counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, f"no plain twin on the {WIDE[0]}x{WIDE[1]} e2e")
     print(f"[19 wide] {WIDE[0]}x{WIDE[1]} 10% dots watershed_e2e(merging=True) equals the exact engine + oracle "
           f"on the coarse tail; launches {wide_counts}")
-    rounds_w, route_w = coarse_tail_against_twins(f"{WIDE[0]}x{WIDE[1]} 10% dots", fixed_labels(wide))
-    check(rounds_w == wide_counts["coarse_round"] and route_w == "ring", f"{WIDE[0]}x{WIDE[1]}: the e2e's coarse tail")
-    print(f"[19 wide] {WIDE[0]}x{WIDE[1]} 10% dots: all {rounds_w} coarse rounds (row route {route_w}) bit-equal to the "
-          "twin, planes and change counts")
+    rounds_w, route_w, croute_w = coarse_tail_against_twins(f"{WIDE[0]}x{WIDE[1]} 10% dots", fixed_labels(wide))
+    check(rounds_w == wide_counts["coarse_round"] and route_w == "ring" and croute_w == "vec",
+          f"{WIDE[0]}x{WIDE[1]}: the e2e's coarse tail")
+    print(f"[19 wide] {WIDE[0]}x{WIDE[1]} 10% dots: coarsen (route {croute_w}) and all {rounds_w} coarse rounds (row "
+          f"route {route_w}) bit-equal to the twin, planes and change counts")
     del got, seg_w, wide_dev
 
     # The public API on a two-column field: the gate fails through w < 3.
@@ -811,17 +828,21 @@ def main() -> int:
         "fwd_v": (median_ms(lambda: sm.fwd_v_kernel(lab16), 10), median_ms(lambda: sm.fwd_v_plain(lab16), 3)),
         "bwd_vh": (median_ms(lambda: sm.bwd_vh_kernel(y16, scratch=scratch16), 10), median_ms(lambda: sm.bwd_vh_plain(y16), 3)),
     }
+    big_ms["pack"] = (median_ms(lambda: pack.pack_kernel(dots16_dev), 10), median_ms(lambda: pack.pack_plain(dots16_dev), 3))
     px16 = BIG * BIG
     big_bounds = {
         "relax2d": bound(px16 * (1 + 8 + 8), px16 * s * 25),
         "fwd_v": bound(px16 * 8, px16 * 6), "bwd_vh": bound(px16 * 8, px16 * 25),
+        "pack": bound(px16 * (1 + 1 + 4 + 4), px16 * 20),
     }
     for kname, (ms, plain_ms) in big_ms.items():
         b_ms, b_by = big_bounds[kname]
         print(f"[19 time] {kname} {BIG}^2: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); gpu={gpu}")
     # bwd_vh's two launches apart (the column scan and the ring row kernel),
-    # and the 4096^2 coarse round's three (the v-pass's two column scans and
-    # the h-pass), in one profiler session: a second session in the same
+    # the 4096^2 coarse round's three (the v-pass's two column scans and
+    # the h-pass), and the device time of pack (4096^2 and 16384^2) and of
+    # coarsen (4096^2), so that the host's launch work is apart from the
+    # kernels' time, in one profiler session: a second session in the same
     # process saw no device activity on the H100 host.
     from torch.profiler import ProfilerActivity, profile
 
@@ -830,6 +851,12 @@ def main() -> int:
             sm.bwd_vh_kernel(y16, scratch=scratch16)
         for _ in range(10):
             sm.coarse_round_kernel(round_in, scratch=round_scratch)
+        for _ in range(10):
+            pack.pack_kernel(img)
+            sm.coarsen_kernel(lab_d)
+        torch.cuda.synchronize()
+        for _ in range(5):
+            pack.pack_kernel(dots16_dev)
         torch.cuda.synchronize()
     split, rsplit = {}, {}
     for e in prof.key_averages():
@@ -845,10 +872,21 @@ def main() -> int:
                 rsplit[part] = t / 10
     check(len(split) == 2 and all(t > 0 for t in split.values()), "the profiler saw both launches of bwd_vh")
     check(len(rsplit) == 3 and all(t > 0 for t in rsplit.values()), "the profiler saw the coarse round's three launches")
+    # pack's launches at both sides share one kernel name: take them apart in
+    # launch order, one device interval each.
+    on_card = sorted((e for e in prof.events() if e.device_type.name == "CUDA"), key=lambda e: e.time_range.start)
+    packs = [e.time_range.elapsed_us() / 1e3 for e in on_card if "pack_bands" in e.name]
+    coarsens = [e.time_range.elapsed_us() / 1e3 for e in on_card if "coarsen_strips" in e.name]
+    check(len(packs) == 15 and len(coarsens) == 10, "the profiler saw pack's 15 and coarsen's 10 launches")
+    dev_ms = {"pack": float(np.median(packs[:10])), "pack 16384": float(np.median(packs[10:])),
+              "coarsen": float(np.median(coarsens))}
     print(f"[19 time] bwd_vh {BIG}^2 per launch (torch.profiler, mean of 5): column scan {split['column scan']:.4f} ms, "
           f"row kernel {split['row kernel']:.4f} ms; gpu={gpu}")
     print(f"[19 time] first coarse round {SIDE}^2 per launch (torch.profiler, mean of 10): "
           + ", ".join(f"{k} {t:.4f} ms" for k, t in rsplit.items()) + f"; gpu={gpu}")
+    print(f"[19 time] device time (torch.profiler, median of 10, 5 at {BIG}^2): pack {SIDE}^2 {dev_ms['pack']:.4f} ms, "
+          f"pack {BIG}^2 {dev_ms['pack 16384']:.4f} ms, coarsen {SIDE}^2 {dev_ms['coarsen']:.4f} ms; CUDA events around "
+          f"one call: {pack_ms:.4f}, {big_ms['pack'][0]:.4f} and {coarsen_ms:.4f} ms; gpu={gpu}")
     del round_in, round_scratch
     del big, exact16, v16, key16, lab16_0, y16, scratch16, lab16, dots16_dev
 
@@ -909,7 +947,11 @@ def main() -> int:
             launches=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None,  # no single PyTorch call computes any of these functions
         ))
-        print(f"[20 bound] {kname}: {ms:.4f} ms against a bound of {b_ms:.4f} ms ({b_by}); gpu={gpu}")
+        device = f", device {dev_ms[kname]:.4f} ms (profiler)" if kname in dev_ms else ""
+        print(f"[20 bound] {kname}: {ms:.4f} ms{device} against a bound of {b_ms:.4f} ms ({b_by}); gpu={gpu}")
+    pb_ms, pb_by = big_bounds["pack"]
+    print(f"[20 bound] pack {BIG}^2: {big_ms['pack'][0]:.4f} ms, device {dev_ms['pack 16384']:.4f} ms (profiler) "
+          f"against a bound of {pb_ms:.4f} ms ({pb_by}); plain {big_ms['pack'][1]:.3f} ms; gpu={gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -17,7 +17,10 @@ counts its label-table rounds as ``merge_round`` (ops/merge.py).  The fine
 ``bwd_vh`` kernel also counts the route of its row launch: ``bwd_vh_ring``
 (the shared-memory ring row kernel) or ``bwd_vh_chunked`` (rows wider than
 the ring), and so does ``coarse_round`` (``coarse_round_ring`` /
-``coarse_round_chunked``).
+``coarse_round_chunked``); ``pack`` counts its route as ``pack_vec`` (the
+band kernel with 16-byte access), ``pack_bytes`` (the band kernel with byte
+access) or ``pack_rows`` (rows wider than a band block), and ``coarsen`` as
+``coarsen_vec`` (column strips) or ``coarsen_cells`` (a thread per cell).
 """
 
 from __future__ import annotations
@@ -54,6 +57,11 @@ launches = {
     "bwd_vh_chunked": 0,
     "coarse_round_ring": 0,
     "coarse_round_chunked": 0,
+    "pack_vec": 0,
+    "pack_bytes": 0,
+    "pack_rows": 0,
+    "coarsen_vec": 0,
+    "coarsen_cells": 0,
 }
 
 _lib = None
@@ -62,6 +70,17 @@ _lib = None
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+_SM_COUNT: dict = {}
+
+
+def sm_count(dev) -> int:
+    """Streaming multiprocessors of CUDA device ``dev`` (a device or its
+    index; cached)."""
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SM_COUNT[dev]
 
 
 def resolve_device(device) -> torch.device:
@@ -141,11 +160,11 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         L = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
-        L.rwt_pack.argtypes = [P, P, P, P, P, P, I, I, I, P]
+        L.rwt_pack.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
         L.rwt_pack.restype = I
         L.rwt_relax.argtypes = [P] * 10 + [I] * 10 + [P]
         L.rwt_relax.restype = I
-        L.rwt_coarsen.argtypes = [P, P, I, I, P]
+        L.rwt_coarsen.argtypes = [P, P, I, I, I, I, I, P]
         L.rwt_coarsen.restype = I
         L.rwt_coarse_round.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
         L.rwt_coarse_round.restype = I

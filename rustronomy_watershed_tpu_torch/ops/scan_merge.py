@@ -56,7 +56,9 @@ padding.  The fine planes carry no aprons either: cells outside read as 0.
 
 from __future__ import annotations
 
+import functools
 import os
+import types
 
 import torch
 
@@ -251,16 +253,49 @@ def coarsen_plain(lab):
     return val
 
 
+_COARSEN_THREADS = 256  # kThreads: the most threads a coarsen block has
+# Coarse rows a strip: the shortest strip that reads a fine row less than
+# twice, fastest of 1..32 at 4096^2 on the H100 (more blocks in flight).
+_COARSEN_STRIP = 2
+_GRID_Y = 65535  # the most blocks along a grid's y axis
+
+
+@functools.lru_cache(maxsize=256)
+def coarsen_plan(h: int, w: int, aligned: bool = True) -> dict:
+    """The coarsen launch: ``route`` ``"vec"`` (w % 4 == 0 and the planes
+    16-byte aligned: ``threads`` threads of 4 columns each, strips of
+    ``k_rows`` coarse rows (``_COARSEN_STRIP``, more where the grid's y axis
+    would overflow), ``grid`` (column blocks, strips)) or
+    ``"cells"`` (a thread per coarse cell).  Cached, so read-only."""
+    _check_width(w)
+    hc = (h + 1) // 2
+    if w % 4 or not aligned:
+        n = hc * w
+        return types.MappingProxyType({"route": "cells", "threads": _COARSEN_THREADS, "k_rows": 0,
+                                       "grid": (-(-n // _COARSEN_THREADS), 1)})
+    cols = w // 4
+    threads = min(_COARSEN_THREADS, 32 * -(-cols // 32))
+    gx = -(-cols // threads)
+    k = max(_COARSEN_STRIP, -(-hc // _GRID_Y))
+    return types.MappingProxyType({"route": "vec", "threads": threads, "k_rows": k, "grid": (gx, -(-hc // k))})
+
+
 def coarsen_kernel(lab):
     """Launch csrc/coarsen.cu on a CUDA label plane; same output as
-    coarsen_plain."""
+    coarsen_plain.  The route ``coarsen_plan`` picks is counted as
+    ``coarsen_vec`` or ``coarsen_cells``."""
     _check_cuda_planes(lab)
     h, w = lab.shape
     _check_width(w)
     c = torch.empty(((h + 1) // 2, w), dtype=torch.int32, device=lab.device)
-    err = _ext.lib().rwt_coarsen(lab.data_ptr(), c.data_ptr(), h, w, _ext.stream_ptr(lab))
+    plan = coarsen_plan(h, w, _vec(w, lab, c))
+    err = _ext.lib().rwt_coarsen(
+        lab.data_ptr(), c.data_ptr(), h, w, 0 if plan["route"] == "vec" else 1, plan["threads"],
+        plan["k_rows"], _ext.stream_ptr(lab),
+    )
     _ext.check(err, "rwt_coarsen")
     _ext.launches["coarsen"] += 1
+    _ext.launches[f"coarsen_{plan['route']}"] += 1
     return c
 
 
@@ -302,7 +337,7 @@ def coarse_round_kernel(c, *, out=None, scratch=None):
     out, scratch = _round_planes(c, out, scratch)
     hc, w = c.shape
     vec = _vec(w, c, scratch)
-    plan = row_plan(hc, w, _sm_count(c.device), coarse=True)
+    plan = row_plan(hc, w, _ext.sm_count(c.get_device()), coarse=True)
     vp = vscan_plan(hc, w, vec)
     # [changed, the two column scans' counters and tile flags, one carry area]
     status = torch.empty((1 + 2 * (1 + vp["n_tiles"]) + vp["status_ints"] - 1 - vp["n_tiles"],),
@@ -511,15 +546,6 @@ def row_plan(h: int, w: int, n_sm: int, coarse: bool = False) -> dict:
     }
 
 
-_SM_COUNT: dict = {}
-
-
-def _sm_count(dev) -> int:
-    if dev not in _SM_COUNT:
-        _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _SM_COUNT[dev]
-
-
 def _vec(w: int, *planes) -> bool:
     return w % 4 == 0 and all(p.data_ptr() % 16 == 0 for p in planes)
 
@@ -559,7 +585,7 @@ def bwd_vh_kernel(y, *, out=None, scratch=None):
     out, scratch = _round_planes(y, out, scratch)
     h, w = y.shape
     vec = _vec(w, y, scratch)
-    plan = row_plan(h, w, _sm_count(y.device))
+    plan = row_plan(h, w, _ext.sm_count(y.get_device()))
     flag = _flag_on(y)
     err = _ext.lib().rwt_fine_bwd_vh(
         y.data_ptr(), scratch.data_ptr(), out.data_ptr(), flag.data_ptr(),

@@ -17,7 +17,7 @@ from rustronomy_watershed_tpu_torch.ops import flood_block, pack, priority, rela
 from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
 from rustronomy_watershed_tpu_torch.ops.pipeline import watershed_e2e
 from rustronomy_watershed_tpu_torch.ops.seeds import local_extrema_mask, seed_labels_from_mask
-from torch_fields import serpentine
+from torch_fields import plateau, seed_lattice, serpentine
 
 pytestmark = pytest.mark.cuda
 
@@ -43,14 +43,49 @@ def _assert_same(got, want):
 
 
 @pytest.mark.parametrize(
-    "shape,hi", [((1, 1), 256), ((2, 5), 256), ((63, 97), 256), ((300, 1000), 4), ((1024, 1024), 255)]
+    "shape,hi,route",
+    [
+        ((1, 1), 256, "bytes"), ((2, 5), 256, "bytes"), ((63, 97), 256, "bytes"), ((300, 1000), 4, "bytes"),
+        ((41, 17), 256, "bytes"), ((1024, 1024), 255, "vec"), ((37, 4096), 255, "vec"), ((4099, 4112), 255, "vec"),
+        ((3, 16384), 255, "vec"), ((130, 16400), 255, "rows"), ((5, 70000), 255, "rows"),
+    ],
 )
-def test_pack_kernel_matches_twin(cuda, shape, hi):
+def test_pack_kernel_matches_twin(cuda, shape, hi, route):
+    """Widths that are multiples of 16 (16-byte route) and not (byte
+    route), heights that end mid-band, many bands, and rows past the band
+    kernel (the three-launch route); the route counted."""
     img = torch.from_numpy(_field(shape, hi)).to(cuda)
+    assert pack.pack_plan(*shape)["route"] == route
     _ext.reset_launches()
     got = pack.pack_domain_fused(img, cuda)
-    assert _ext.launches["pack"] == 1 and _ext.launches["pack_plain"] == 0
+    assert _ext.launches["pack"] == _ext.launches[f"pack_{route}"] == 1 and _ext.launches["pack_plain"] == 0
     _assert_same(got, pack.pack_plain(img))
+
+
+@pytest.mark.parametrize(
+    "shape,route", [((64, 96), "vec"), ((63, 97), "bytes"), ((4096, 4096), "vec"), ((517, 16384), "vec"), ("unaligned", "bytes")]
+)
+def test_pack_kernel_dense_fields(cuda, shape, route):
+    """The seed lattice (a seed at every interior (odd, odd) pixel: about
+    h*w/4 seeds, two rows' counts near their packed limit) and a 0..3
+    plateau field; an image one byte past a 16-byte line takes the byte
+    route."""
+    for make in (seed_lattice, plateau):
+        if shape == "unaligned":
+            a = make((40, 64))
+            buf = torch.empty(a.size + 1, dtype=torch.uint8, device=cuda)
+            img = buf[1:].view(a.shape)
+            img.copy_(torch.from_numpy(a))
+        else:
+            img = torch.from_numpy(make(shape)).to(cuda)
+        _ext.reset_launches()
+        got = pack.pack_kernel(img)
+        assert _ext.launches[f"pack_{route}"] == 1
+        want = pack.pack_plain(img)
+        _assert_same(got, want)
+        if make is seed_lattice:
+            h, w = img.shape
+            assert int(got[3]) == ((h - 1) // 2) * ((w - 1) // 2)
 
 
 @pytest.mark.parametrize("steps", [1, 8, 16, 27])
@@ -133,6 +168,41 @@ def test_coarse_kernels_match_twins(cuda, shape):
     fine = sm.coarse_broadcast_kernel(c, lab)
     _assert_same([fine], [sm.coarse_broadcast_plain(c, lab)])
     _assert_same([fine], [sm.component_min_labels_plain(lab)])
+
+
+def _sparse_labels(shape, seed):
+    rng = np.random.default_rng(seed)
+    return np.where(rng.random(shape) < 0.3, 0, rng.integers(1, 1 << 24, shape)).astype(np.int32)
+
+
+@pytest.mark.parametrize(
+    "shape,route",
+    [
+        ((64, 96), "vec"), ((1, 8), "vec"), ((2, 4), "vec"), ((3, 4), "vec"), ((4093, 4096), "vec"),
+        ((2050, 16384), "vec"), ((4096, 4096), "vec"), ((1023, 1031), "cells"), ((33, 3), "cells"),
+        ((1, 5), "cells"), ("unaligned", "cells"),
+    ],
+)
+def test_coarsen_kernel_routes_match_twin(cuda, shape, route):
+    """The coarsen kernel against its twin on sparse random labels and on a
+    relax fixed point: odd h and h ending mid-strip (4093 x 4096 and
+    2050 x 16384: a last strip of one coarse row), w % 4 != 0, w = 3 and (1, 5)
+    (a thread per cell), an unaligned plane; the route counted."""
+    planes = []
+    if shape == "unaligned":
+        for lab in (torch.from_numpy(_sparse_labels((130, 260), 3)).to(cuda), _relaxed_labels((130, 260), seed=4)):
+            planes.append(_unaligned(lab))
+    else:
+        planes.append(torch.from_numpy(_sparse_labels(shape, shape[1])).to(cuda))
+        if min(shape) >= 3:
+            planes.append(_relaxed_labels(shape, seed=shape[0]))
+    for lab in planes:
+        plan = sm.coarsen_plan(*lab.shape, sm._vec(lab.shape[1], lab))
+        assert plan["route"] == route
+        _ext.reset_launches()
+        got = sm.coarsen_kernel(lab)
+        assert _ext.launches["coarsen"] == _ext.launches[f"coarsen_{route}"] == 1
+        _assert_same([got], [sm.coarsen_plain(lab)])
 
 
 def test_merging_e2e_matches_exact_engine(cuda):
@@ -327,7 +397,7 @@ def test_bwd_vh_violation_across_band_and_step_boundaries(cuda, shape):
     start (checked through the band's shadow row), or a step start inside a
     band (checked against the previous ring buffer): flag 1, as the twin."""
     h, w = shape
-    plan = sm.row_plan(h, w, sm._sm_count(cuda))
+    plan = sm.row_plan(h, w, _ext.sm_count(cuda))
     assert plan["route"] == "ring"
     starts = {"band": min(plan["band_rows"] * (plan["n_bands"] // 2), h - 1)}
     if plan["band_rows"] > plan["rows_per_step"] + 1:

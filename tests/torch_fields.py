@@ -18,3 +18,16 @@ def serpentine(h=48, w=48):
             nxt += 3
     lab[h - 4, w // 2] = 5
     return lab
+
+
+def seed_lattice(shape, seed=0):
+    """A u8 image with a strict maximum at every (odd, odd) pixel (values
+    1..255 on a field of 0): about h*w/4 seeds, the densest seed plane."""
+    img = np.zeros(shape, np.uint8)
+    img[1::2, 1::2] = np.random.default_rng(seed).integers(1, 256, img[1::2, 1::2].shape)
+    return img
+
+
+def plateau(shape, seed=0):
+    """A u8 image of values 0..3: wide plateaus, few strict maxima."""
+    return np.random.default_rng(seed).integers(0, 4, shape).astype(np.uint8)

@@ -32,6 +32,10 @@ CUTS = [
     ('PAST_CAP = (300, 18440)', 'PAST_CAP = (7, 18440)'),
     ('    split, rsplit = {}, {}\n', '    split, rsplit = {"column scan": 1.0, "row kernel": 1.0}, '
      '{"v-pass forward": 1.0, "v-pass backward": 1.0, "h-pass": 1.0}  # no device trace on the CPU\n'),
+    ('    packs = [e.time_range.elapsed_us() / 1e3 for e in on_card if "pack_bands" in e.name]\n',
+     '    packs = [1.0] * 15  # no device trace on the CPU\n'),
+    ('    coarsens = [e.time_range.elapsed_us() / 1e3 for e in on_card if "coarsen_strips" in e.name]\n',
+     '    coarsens = [1.0] * 10\n'),
     ('(1024, 1024)', '(512, 512)'),
     ('0, 1024, 60', '0, 512, 60'),
     ('integers(1, 1023, (40, 2))', 'integers(1, 511, (40, 2))'),
@@ -59,7 +63,13 @@ def _fake_kernels():
 
         return run
 
-    pack.pack_kernel = as_kernel(pack.pack_plain, "pack")
+    pack_kernel = as_kernel(pack.pack_plain, "pack")
+
+    def pack_routed(img, **kw):  # the route the card's plan would take
+        _ext.launches[f"pack_{pack.pack_plan(*img.shape)['route']}"] += 1
+        return pack_kernel(img, **kw)
+
+    pack.pack_kernel = pack_routed
     relax.relax_block_kernel = as_kernel(relax.relax_block_plain, "relax")
     relax.relax_block = lambda *a, **k: relax.relax_block_kernel(*a, **k)
 
@@ -67,7 +77,13 @@ def _fake_kernels():
         return pack.pack_kernel(torch.as_tensor(img).to(torch.uint8).contiguous(), **kw)
 
     pack.pack_domain_fused = relax.pack_domain_fused = pack_fused
-    sm.coarsen_kernel = as_kernel(sm.coarsen_plain, "coarsen")
+    coarsen_kernel = as_kernel(sm.coarsen_plain, "coarsen")
+
+    def coarsen_routed(lab):
+        _ext.launches[f"coarsen_{sm.coarsen_plan(*lab.shape, sm._vec(lab.shape[1], lab))['route']}"] += 1
+        return coarsen_kernel(lab)
+
+    sm.coarsen_kernel = coarsen_routed
     sm.coarse_round_kernel = as_kernel(sm.coarse_round_plain, "coarse_round")
     sm.coarse_broadcast_kernel = as_kernel(sm.coarse_broadcast_plain, "coarse_broadcast")
     for name in ("fwd_v", "bwd_vh", "cfwd_v", "cbwd_vh"):
@@ -86,7 +102,7 @@ def _fake_kernels():
         return coarse_round(c, **kw)
 
     sm.coarse_round_kernel = coarse_round_routed
-    sm._sm_count = lambda dev: 132
+    _ext.sm_count = lambda dev: 132
     # The cut BIG x BIG field keeps the full size's label bound, so that it
     # takes the fine tail as 16384^2 does.
     bound = pipeline.max_seed_count
