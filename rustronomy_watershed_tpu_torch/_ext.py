@@ -160,11 +160,11 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         L = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
-        L.rwt_pack.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
+        L.rwt_pack.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         L.rwt_pack.restype = I
         L.rwt_relax.argtypes = [P] * 10 + [I] * 10 + [P]
         L.rwt_relax.restype = I
-        L.rwt_coarsen.argtypes = [P, P, I, I, I, I, I, P]
+        L.rwt_coarsen.argtypes = [P, P, I, I, I, I, I, I, I, P]
         L.rwt_coarsen.restype = I
         L.rwt_coarse_round.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
         L.rwt_coarse_round.restype = I

@@ -46,7 +46,7 @@ constexpr int kVal = (1 << 24) - 1;
 __global__ void __launch_bounds__(kThreads)
 coarsen_cells(const int32_t* __restrict__ lab, int32_t* __restrict__ c, int h,
               int w, int hc) {
-  const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)hc * w) return;
   const int x = static_cast<int>(i % w);
   const int r0 = 2 * static_cast<int>(i / w), r1 = r0 + 1;
@@ -161,31 +161,34 @@ coarsen_strips(const int32_t* __restrict__ lab, int32_t* __restrict__ c, int h, 
 
 }  // namespace
 
-// lab: (h, w) int32 labels; c: (ceil(h/2), w) int32 out; w >= 3.  route
-// (ops/scan_merge.py coarsen_plan): 0 the strips (w % 4 == 0, both planes
-// 16-byte aligned; `threads` a multiple of 32 up to 256, `k_rows` coarse
-// rows a strip), 1 one thread per cell.  Launches on `stream`, does not
+// lab: (h, w) int32 labels; c: (ceil(h/2), w) int32 out; w >= 3.  The
+// launch plan comes from ops/scan_merge.py coarsen_plan and is launched as
+// given: route 0 the strips (w % 4 == 0, both planes 16-byte aligned) on a
+// (grid_x, grid_y) grid of `threads` (whole warps, at most kThreads) of 4
+// columns each, strips of `k_rows` coarse rows; route 1 one thread per cell,
+// grid_x blocks of `threads` (grid_y 1).  Launches on `stream`, does not
 // synchronise, returns cudaGetLastError(), or cudaErrorInvalidValue for a
-// plan the kernels do not take.
+// plan that does not cover the plane or that the kernels do not take.
 extern "C" int rwt_coarsen(const void* lab, void* c, int h, int w, int route, int threads, int k_rows,
-                           void* stream) {
+                           int grid_x, int grid_y, void* stream) {
   const int hc = (h + 1) / 2;
-  const size_t n = (size_t)hc * w;
+  const long long n = (long long)hc * w;
   if (n == 0) return 0;
   const int32_t* l = static_cast<const int32_t*>(lab);
   int32_t* out = static_cast<int32_t*>(c);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (threads <= 0 || threads % 32 != 0 || threads > kThreads || grid_x <= 0 || grid_y <= 0 || grid_y > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1) {
-    coarsen_cells<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, st>>>(l, out, h, w, hc);
+    if (grid_y != 1 || (long long)grid_x * threads < n) return static_cast<int>(cudaErrorInvalidValue);
+    coarsen_cells<<<grid_x, threads, 0, st>>>(l, out, h, w, hc);
     return static_cast<int>(cudaGetLastError());
   }
+  // Every 4-column group in one thread, every coarse row in one strip.
   if (route != 0 || w % 4 != 0 || reinterpret_cast<uintptr_t>(lab) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(c) % 16 != 0 || threads <= 0 || threads % 32 != 0 || threads > kThreads ||
-      k_rows <= 0)
+      reinterpret_cast<uintptr_t>(c) % 16 != 0 || k_rows <= 0 || 4LL * grid_x * threads < w ||
+      (long long)grid_y * k_rows < hc)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int cols = w / 4;
-  const dim3 grid((cols + threads - 1) / threads, (hc + k_rows - 1) / k_rows);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  coarsen_strips<<<grid, threads, 0, st>>>(l, out, h, w, hc, k_rows);
+  coarsen_strips<<<dim3(grid_x, grid_y), threads, 0, st>>>(l, out, h, w, hc, k_rows);
   return static_cast<int>(cudaGetLastError());
 }

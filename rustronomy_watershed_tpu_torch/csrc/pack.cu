@@ -15,8 +15,8 @@
 // grid in SMEM; Hopper blocks run in no order, so the row-major numbering is
 // a device-wide exclusive scan, done in the same pass by a decoupled
 // look-back:
-//   * `pack_bands` (rows of at most 16384 pixels): a block takes a band of R
-//     full rows (R from ops/pack.py pack_plan), its band id from an atomic
+//   * `pack_bands` (rows of at most 16384 pixels): a block takes a band of
+//     kBandRows = 8 full rows, its band id from an atomic
 //     ticket, so every band it waits on has started.  A thread owns a group
 //     of 16 columns and walks down the band holding rows y-1, y and y+1 of
 //     its group in registers, one 16-byte load per new row; the pixels
@@ -43,9 +43,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kNeverFill = 255;
+constexpr int kBandRows = 8;           // ops/pack.py _BAND_ROWS
 constexpr int kMaxBandThreads = 1024;  // ops/pack.py _BAND_THREADS: 16384 columns
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -124,11 +123,12 @@ __device__ __forceinline__ uint32_t bytes_of(uint32_t n) {
 
 // status: [ticket, then one word per band: flag << 32 | count], zero at
 // launch; flag 1 = the band's aggregate, 2 = the inclusive prefix.
-template <int R, bool kVec>
+template <bool kVec>
 __global__ void __launch_bounds__(kMaxBandThreads, 1)
 pack_bands(const uint8_t* __restrict__ img, uint8_t* __restrict__ v, int32_t* __restrict__ key,
            int32_t* __restrict__ lab, unsigned long long* status, int32_t* __restrict__ n_seeds, int h,
            int w, int unclaimed) {
+  constexpr int R = kBandRows;
   constexpr int kP = R / 2;  // two rows' counts per int
   __shared__ int s_band, s_off;
   __shared__ uint32_t s_warp[32][kP];
@@ -314,7 +314,7 @@ __global__ void count_rows(const uint8_t* __restrict__ img,
                            int32_t* __restrict__ row_cnt, int h, int w) {
   const int y = blockIdx.x;
   int cnt = 0;
-  for (int x0 = 0; x0 < w; x0 += kThreads) {
+  for (int x0 = 0; x0 < w; x0 += blockDim.x) {
     cnt += __syncthreads_count(is_seed(img, y, x0 + threadIdx.x, h, w));
   }
   if (threadIdx.x == 0) row_cnt[y] = cnt;
@@ -357,20 +357,20 @@ __global__ void write_rows(const uint8_t* __restrict__ img,
                            uint8_t* __restrict__ v, int32_t* __restrict__ key,
                            int32_t* __restrict__ lab, int h, int w,
                            int unclaimed) {
-  __shared__ int32_t warp_cnt[kWarps];
+  __shared__ int32_t warp_cnt[32];
   const int y = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const unsigned lt_mask = (1u << lane) - 1u;
   const bool row_inside = y >= 1 && y <= h - 2;
   int carry = row_off[y];
-  for (int x0 = 0; x0 < w; x0 += kThreads) {
+  for (int x0 = 0; x0 < w; x0 += blockDim.x) {
     const int x = x0 + threadIdx.x;
     const bool s = is_seed(img, y, x, h, w);
     const unsigned ballot = __ballot_sync(0xffffffffu, s);
     if (lane == 0) warp_cnt[warp] = __popc(ballot);
     __syncthreads();
     int before = carry, total = 0;
-    for (int k = 0; k < kWarps; ++k) {
+    for (int k = 0; k < nwarps; ++k) {
       if (k < warp) before += warp_cnt[k];
       total += warp_cnt[k];
     }
@@ -386,17 +386,6 @@ __global__ void write_rows(const uint8_t* __restrict__ img,
   }
 }
 
-template <int R>
-void launch_bands(bool vec, int n_bands, int threads, const uint8_t* img, uint8_t* v, int32_t* key,
-                  int32_t* lab, unsigned long long* status, int32_t* n_seeds, int h, int w, int unclaimed,
-                  cudaStream_t st) {
-  if (vec) {
-    pack_bands<R, true><<<n_bands, threads, 0, st>>>(img, v, key, lab, status, n_seeds, h, w, unclaimed);
-  } else {
-    pack_bands<R, false><<<n_bands, threads, 0, st>>>(img, v, key, lab, status, n_seeds, h, w, unclaimed);
-  }
-}
-
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
@@ -406,45 +395,49 @@ extern "C" const char* rwt_error_string(int err) {
 }
 
 // img: (h, w) u8; v: (h, w) u8; key, lab: (h, w) int32; n_seeds: int32
-// scalar.  route (ops/pack.py pack_plan): 0 the band kernel with 16-byte
-// access (w % 16 == 0, every plane 16-byte aligned), 1 the band kernel with
-// byte access, 2 the three-launch wide route.  For routes 0 and 1, status
-// holds 1 + ceil(h / band_rows) uint64 (zeroed here), band_rows is 4 or 8
-// and threads is 32 * ceil(ceil(w / 16) / 32) <= 1024; for route 2,
-// status holds h int32.  All on the device; launches on `stream` and does
-// not synchronise.  Returns cudaGetLastError(), or cudaErrorInvalidValue for
-// a plan the kernels do not take.
+// scalar.  The launch plan comes from ops/pack.py pack_plan and is launched
+// as given: route 0 the band kernel with 16-byte access (w % 16 == 0, every
+// plane 16-byte aligned), 1 the band kernel with byte access, both as
+// n_blocks bands of band_rows (= kBandRows) rows, threads (whole warps, at
+// most kMaxBandThreads) of 16 columns each, status holding 1 + n_blocks
+// uint64 (zeroed here); 2 the three-launch wide route, n_blocks = h blocks
+// of threads (whole warps, at most 1024), status holding h int32.  All on
+// the device; launches on `stream` and does not synchronise.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a plan that does not
+// cover the image exactly or that the kernels do not take.
 extern "C" int rwt_pack(const void* img, void* v, void* key, void* lab,
                         void* status, void* n_seeds, int h, int w,
                         int unclaimed, int route, int band_rows, int threads,
-                        void* stream) {
+                        int n_blocks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* im = static_cast<const uint8_t*>(img);
   uint8_t* vv = static_cast<uint8_t*>(v);
   int32_t* kk = static_cast<int32_t*>(key);
   int32_t* ll = static_cast<int32_t*>(lab);
   int32_t* ns = static_cast<int32_t*>(n_seeds);
-  if (h <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0 || w <= 0 || threads <= 0 || threads % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (route == 2) {
+    if (n_blocks != h || threads > 1024) return static_cast<int>(cudaErrorInvalidValue);
     int32_t* rc = static_cast<int32_t*>(status);
-    count_rows<<<h, kThreads, 0, st>>>(im, rc, h, w);
+    count_rows<<<h, threads, 0, st>>>(im, rc, h, w);
     scan_rows<<<1, 1024, 0, st>>>(rc, ns, h);
-    write_rows<<<h, kThreads, 0, st>>>(im, rc, vv, kk, ll, h, w, unclaimed);
+    write_rows<<<h, threads, 0, st>>>(im, rc, vv, kk, ll, h, w, unclaimed);
     return static_cast<int>(cudaGetLastError());
   }
-  const int groups = (w + 15) / 16;
   const bool vec = route == 0;
-  if ((route != 0 && route != 1) || threads != 32 * ((groups + 31) / 32) || threads > kMaxBandThreads ||
+  // Every column and row in exactly one thread's group and one band (the
+  // last band writes n_seeds).
+  if ((route != 0 && route != 1) || band_rows != kBandRows || threads > kMaxBandThreads ||
+      16 * threads < w || (long long)n_blocks * kBandRows < h || (long long)(n_blocks - 1) * kBandRows >= h ||
       (vec && (w % 16 != 0 || !aligned16(img) || !aligned16(v) || !aligned16(key) || !aligned16(lab))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_bands = (h + band_rows - 1) / band_rows;
   unsigned long long* stat = static_cast<unsigned long long*>(status);
-  const cudaError_t e = cudaMemsetAsync(stat, 0, (size_t)(1 + n_bands) * sizeof(unsigned long long), st);
+  const cudaError_t e = cudaMemsetAsync(stat, 0, (size_t)(1 + n_blocks) * sizeof(unsigned long long), st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  switch (band_rows) {
-    case 4: launch_bands<4>(vec, n_bands, threads, im, vv, kk, ll, stat, ns, h, w, unclaimed, st); break;
-    case 8: launch_bands<8>(vec, n_bands, threads, im, vv, kk, ll, stat, ns, h, w, unclaimed, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (vec) {
+    pack_bands<true><<<n_blocks, threads, 0, st>>>(im, vv, kk, ll, stat, ns, h, w, unclaimed);
+  } else {
+    pack_bands<false><<<n_blocks, threads, 0, st>>>(im, vv, kk, ll, stat, ns, h, w, unclaimed);
   }
   return static_cast<int>(cudaGetLastError());
 }

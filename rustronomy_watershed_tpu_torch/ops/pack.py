@@ -48,37 +48,34 @@ def pack_plain(img: torch.Tensor, *, d_bits: int = _D_BITS):
 
 
 # The pack kernel's launch plan, computed here so that the CPU tests can
-# check it; csrc/pack.cu refuses a plan that does not fit.
+# check it; csrc/pack.cu launches it as given and refuses a plan that does
+# not cover the image.
 _GROUP = 16  # columns a band-kernel thread owns (one 16-byte load)
 _BAND_THREADS = 1024  # kMaxBandThreads: rows of up to 16384 pixels take the band kernel
-_BAND_ROWS = (8, 4)  # rows a band, tried in order
-_BAND_REGS = 64  # registers a thread may take: 1024 threads fill an SM's 65536
-_ROWS_THREADS = 256  # kThreads of the wide route
+_BAND_ROWS = 8  # kBandRows: rows a band
+_ROWS_THREADS = 256  # threads a block of the wide route
 
 
 @functools.lru_cache(maxsize=256)
-def pack_plan(h: int, w: int, aligned: bool = True, n_sm: int = 132) -> dict:
+def pack_plan(h: int, w: int, aligned: bool = True) -> dict:
     """The pack launch.  ``route`` ``"vec"`` (the band kernel with 16-byte
     access: w % 16 == 0 and the planes 16-byte aligned) or ``"bytes"`` (the
     same kernel with byte access), for rows of at most ``_BAND_THREADS *
     _GROUP`` pixels: ``threads`` (a thread per 16 columns, whole warps),
-    ``band_rows`` rows a band (the tallest of ``_BAND_ROWS`` that still
-    gives three bands per SM), ``n_bands``, and
-    ``status_words`` uint64 of look-back status (a ticket, one word per
-    band).  Wider rows take ``"rows"``: the three-launch route, a block per
-    row, ``status_words`` holding h int32 row counts.  ``regs`` is the most
-    registers a thread may take (the kernel's launch bounds).  Cached, so
-    read-only."""
+    ``band_rows`` rows a band, ``n_bands`` blocks, and ``status_words``
+    uint64 of look-back status (a ticket, one word per band).  Wider rows
+    take ``"rows"``: the three-launch route, ``n_bands`` = h blocks of
+    ``threads``, one per row, ``status_words`` holding h int32 row counts.
+    Cached, so read-only."""
     groups = -(-w // _GROUP)
     threads = 32 * -(-groups // 32)
     if threads > _BAND_THREADS:
         return types.MappingProxyType({"route": "rows", "threads": _ROWS_THREADS, "band_rows": 1, "n_bands": h,
-                                       "status_words": -(-h // 2), "regs": 255})
-    band = next((r for r in _BAND_ROWS if -(-h // r) >= 3 * n_sm), _BAND_ROWS[-1])
-    n_bands = -(-h // band)
+                                       "status_words": -(-h // 2)})
+    n_bands = -(-h // _BAND_ROWS)
     return types.MappingProxyType({
-        "route": "vec" if w % _GROUP == 0 and aligned else "bytes", "threads": threads, "band_rows": band,
-        "n_bands": n_bands, "status_words": 1 + n_bands, "regs": _BAND_REGS,
+        "route": "vec" if w % _GROUP == 0 and aligned else "bytes", "threads": threads, "band_rows": _BAND_ROWS,
+        "n_bands": n_bands, "status_words": 1 + n_bands,
     })
 
 
@@ -97,12 +94,12 @@ def pack_kernel(img: torch.Tensor, *, d_bits: int = _D_BITS):
     lab = torch.empty_like(key)
     n_seeds = torch.empty((), dtype=torch.int32, device=img.device)
     aligned = all(t.data_ptr() % 16 == 0 for t in (img, v, key, lab))
-    plan = pack_plan(h, w, aligned, _ext.sm_count(img.get_device()))
+    plan = pack_plan(h, w, aligned)
     status = torch.empty((plan["status_words"],), dtype=torch.int64, device=img.device)
     err = _ext.lib().rwt_pack(
         img.data_ptr(), v.data_ptr(), key.data_ptr(), lab.data_ptr(),
         status.data_ptr(), n_seeds.data_ptr(), h, w, NEVER_FILL << d_bits,
-        _ROUTE_CODE[plan["route"]], plan["band_rows"], plan["threads"], _ext.stream_ptr(img),
+        _ROUTE_CODE[plan["route"]], plan["band_rows"], plan["threads"], plan["n_bands"], _ext.stream_ptr(img),
     )
     _ext.check(err, "rwt_pack")
     _ext.launches["pack"] += 1

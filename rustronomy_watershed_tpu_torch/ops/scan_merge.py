@@ -253,6 +253,9 @@ def coarsen_plain(lab):
     return val
 
 
+# The coarsen kernel's launch plan, computed here so that the CPU tests can
+# check it; csrc/coarsen.cu launches it as given and refuses a plan that
+# does not cover the plane.
 _COARSEN_THREADS = 256  # kThreads: the most threads a coarsen block has
 # Coarse rows a strip: the shortest strip that reads a fine row less than
 # twice, fastest of 1..32 at 4096^2 on the H100 (more blocks in flight).
@@ -266,7 +269,8 @@ def coarsen_plan(h: int, w: int, aligned: bool = True) -> dict:
     16-byte aligned: ``threads`` threads of 4 columns each, strips of
     ``k_rows`` coarse rows (``_COARSEN_STRIP``, more where the grid's y axis
     would overflow), ``grid`` (column blocks, strips)) or
-    ``"cells"`` (a thread per coarse cell).  Cached, so read-only."""
+    ``"cells"`` (a thread per coarse cell, ``grid`` (blocks, 1)).  Cached,
+    so read-only."""
     _check_width(w)
     hc = (h + 1) // 2
     if w % 4 or not aligned:
@@ -291,7 +295,7 @@ def coarsen_kernel(lab):
     plan = coarsen_plan(h, w, _vec(w, lab, c))
     err = _ext.lib().rwt_coarsen(
         lab.data_ptr(), c.data_ptr(), h, w, 0 if plan["route"] == "vec" else 1, plan["threads"],
-        plan["k_rows"], _ext.stream_ptr(lab),
+        plan["k_rows"], *plan["grid"], _ext.stream_ptr(lab),
     )
     _ext.check(err, "rwt_coarsen")
     _ext.launches["coarsen"] += 1

@@ -25,7 +25,6 @@ torch.set_num_threads(1)
 
 WIDTHS = [1, 2, 3, 5, 15, 16, 17, 97, 4096, 16384, 70000]
 HEIGHTS = [1, 7, 4099, 16384]
-N_SM = 132  # the H100's SMs
 SM_REGS, BLOCK_THREADS, GRID_Y = 65536, 1024, 65535
 
 
@@ -33,22 +32,24 @@ SM_REGS, BLOCK_THREADS, GRID_Y = 65536, 1024, 65535
 def test_pack_plan(w):
     for h in HEIGHTS:
         for aligned in (True, False):
-            p = pack.pack_plan(h, w, aligned, N_SM)
+            p = pack.pack_plan(h, w, aligned)
             if w > 16384:
                 assert p["route"] == "rows" and p["n_bands"] == h and p["status_words"] * 2 >= h
             else:
                 assert p["route"] == ("vec" if w % 16 == 0 and aligned else "bytes")
                 assert p["threads"] % 32 == 0 and p["threads"] * 16 >= w > p["threads"] * 16 - 512
-                assert p["band_rows"] in (4, 8)
+                assert p["band_rows"] == 8
                 # Bands cover every row once: the last band starts inside the image.
                 r = p["band_rows"]
                 assert p["n_bands"] * r >= h > (p["n_bands"] - 1) * r
                 assert p["status_words"] == 1 + p["n_bands"]
-            assert p["threads"] <= BLOCK_THREADS and p["threads"] * p["regs"] <= SM_REGS and p["regs"] <= 255
-    # The main path's shapes take the 16-byte band route, eight rows a band.
+            # The band kernel's registers are held to 64 a thread by its
+            # launch bounds (1024 threads, one block an SM): the card refuses
+            # the 16384-wide launch in the CUDA tests if they are not.
+            assert p["threads"] <= BLOCK_THREADS
+    # The main path's shapes take the 16-byte band route.
     for side in (4096, 16384):
-        p = pack.pack_plan(side, side, True, N_SM)
-        assert p["route"] == "vec" and p["band_rows"] == 8 and p["n_bands"] >= 3 * N_SM
+        assert pack.pack_plan(side, side, True)["route"] == "vec"
 
 
 @pytest.mark.parametrize("w", WIDTHS)
@@ -62,6 +63,7 @@ def test_coarsen_plan(w):
             p = sm.coarsen_plan(h, w, aligned)
             hc = (h + 1) // 2
             gx, gy = p["grid"]
+            # 255 registers a thread, the most a thread can hold, still fit.
             assert p["threads"] % 32 == 0 and p["threads"] <= 256 and p["threads"] * 255 <= SM_REGS
             if w % 4 == 0 and aligned:
                 assert p["route"] == "vec"
