@@ -5,9 +5,10 @@ one NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from csrc/, holds each against its plain
-PyTorch twin on the card (every call of the 4096^2 relax fixed points with
-quiet tiles skipped, every coarse round of seven fields and of a 2048x16384
-tail), drives both main paths through the entry points a
+PyTorch twin on the card (every call of the 4096^2 relax fixed points and of
+the 4096^2 uniform and Poisson(30) flood level sweeps with quiet tiles
+skipped, every coarse round of seven fields and of a 2048x16384 tail),
+drives both main paths through the entry points a
 user calls (the public builder API on the committed goldens, ``watershed_e2e``
 on the 4096^2 u8 fields, ``transform_batch`` on 16 x 1024^2 cutouts) for the
 segmenting and the merging variant, then the level-sweep engine
@@ -85,13 +86,14 @@ def main() -> int:
     from rustronomy_watershed_tpu_torch import _ext
     from rustronomy_watershed_tpu_torch.ops import flood, flood_block, pack, priority, relax
     from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
+    from rustronomy_watershed_tpu_torch.ops.histogram import value_histogram
     from rustronomy_watershed_tpu_torch.ops.level_driver import run_levels_impl
     from rustronomy_watershed_tpu_torch.ops.pipeline import max_seed_count, watershed_e2e
     from rustronomy_watershed_tpu_torch.ops.seeds import local_extrema_mask, paint_seeds, seed_labels_from_mask
     from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
-    from torch_fields import plateau, seed_lattice, serpentine  # NumPy only
+    from torch_fields import plateau, poisson_u8, seed_lattice, serpentine  # NumPy only
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -378,22 +380,27 @@ def main() -> int:
             check(rounds < 10000, f"coarse rounds converge on {label}")
         check(_ext.launches[f"coarse_round_{route}"] == _ext.launches["coarse_round"] == rounds,
               f"the coarse round took the {route} row route on {label}")
+        broute = sm.broadcast_plan(*lab.shape, sm._vec(lab.shape[1], c, lab))["route"]
         fine = sm.coarse_broadcast_kernel(c, lab)
+        check(_ext.launches[f"coarse_broadcast_{broute}"] == _ext.launches["coarse_broadcast"] == 1,
+              f"the broadcast took the {broute} route on {label}")
         err = max_err([fine], [sm.coarse_broadcast_plain(c, lab)])
         check(err == 0, f"coarse broadcast kernel == twin on {label}")
         coarse_err["coarse_broadcast"] = max(coarse_err["coarse_broadcast"], err)
         check(torch.equal(fine, sm.component_min_labels_plain(lab)), f"coarse tail == oracle on {label}")
-        return rounds, route, croute
+        return rounds, route, croute, broute
 
-    coarse_routes, coarsen_routes = set(), set()
+    coarse_routes, coarsen_routes, bcast_routes = set(), set(), set()
     for label, lab in coarse_fields.items():
-        rounds, route, croute = coarse_tail_against_twins(label, lab)
+        rounds, route, croute, broute = coarse_tail_against_twins(label, lab)
         coarse_routes.add(route)
         coarsen_routes.add(croute)
+        bcast_routes.add(broute)
         print(f"[8 coarse] {label}: coarsen (route {croute}), {rounds} rounds (row route {route}) and broadcast "
-              "bit-equal to their twins; tail == oracle")
+              f"(route {broute}) bit-equal to their twins; tail == oracle")
     check(coarse_routes == {"ring", "chunked"}, "both row routes of the coarse round ran")
     check(coarsen_routes == {"vec", "cells"}, "both routes of coarsen ran")
+    check(bcast_routes == {"vec", "cells"}, "both routes of the broadcast ran")
 
     # -- 9: the merging public API on the goldens ------------------------------
     _ext.reset_launches()
@@ -428,8 +435,9 @@ def main() -> int:
         tail = route == "merge_tail"
         for k in ("coarsen", "coarse_round", "coarse_broadcast"):
             check((counts[k] > 0) == tail, f"{k} launched iff the tail ran ({label})")
-        check(counts["coarsen_vec"] == counts["coarsen"] and counts["pack_vec"] == 1,
-              f"{label} merging e2e took the vector routes of pack and coarsen")
+        check(counts["coarsen_vec"] == counts["coarsen"] and counts["pack_vec"] == 1
+              and counts["coarse_broadcast_vec"] == counts["coarse_broadcast"],
+              f"{label} merging e2e took the vector routes of pack, coarsen and the broadcast")
         check(counts["pack"] == 1 and counts["relax"] > 0, f"{label} merging e2e launched pack and relax")
         check(torch.equal(got, sm.component_min_labels_plain(seg)), f"{label} merging e2e == exact engine + oracle")
         merge_runs[label] = counts
@@ -512,14 +520,61 @@ def main() -> int:
     check(torch.equal(fixed60, want) and painted == want_painted, "flood kernel fixed point == plain fixed point")
     print(f"[13 flood] {SIDE}^2 level-60 fixed point through the kernel equals the plain sweeps (painted {painted})")
 
+    def flood_level_sweep(field, lab_, on_call):
+        """The flood-kernel level sweep of ops/level_driver.py (segmenting)
+        written out, so that every call is seen: ``on_call(lvl, first, src,
+        dst, flags, skipped)``.  Overwrites ``lab_``; returns the labels."""
+        fimg_ = flood_block.flood_image(field)
+        scratch_, tiles_ = lab_.clone(), flood_block.flood_tiles(fimg_)
+        vhist = value_histogram(field).tolist()
+        for lvl_ in range(255):
+            if lvl_ and not vhist[lvl_]:
+                continue
+            k = [0]
+
+            def seen(*call, lvl_=lvl_, k=k):
+                on_call(lvl_, k[0] == 0, *call)
+                k[0] += 1
+
+            lab_, scratch_, _ = flood_block.flood_fixed_point_block(fimg_, lab_, lvl_, scratch=scratch_, tiles=tiles_,
+                                                                    on_call=seen)
+        return lab_
+
+    # Every call of the uniform and Poisson(30) level sweeps (segmenting,
+    # quiet tiles skipped) against the twin's call on the same input.
+    poisson_np = poisson_u8((SIDE, SIDE))
+    n_flood_tiles = flood_block.flood_plan(SIDE, SIDE, fs)["n_tiles"]
+    for label, field in ((f"uniform {SIDE}^2", img), (f"Poisson(30) {SIDE}^2", to_dev(poisson_np))):
+        fimg_s, seeds_s = flood_block.flood_image(field), seed_labels_from_mask(local_extrema_mask(field))
+        skips, firsts = [], []
+
+        def held(lvl_, first, src, dst, flags, skipped, fimg_s=fimg_s, label=label, skips=skips, firsts=firsts):
+            nonlocal flood_err
+            err = max_err((dst, flags), flood_block.flood_block_plain(fimg_s, src, lvl_, fs))
+            check(err == 0, f"level-sweep flood call {len(skips)} (level {lvl_}) == twin on {label}")
+            flood_err = max(flood_err, err)
+            skips.append(skipped)
+            firsts.append(first)
+
+        got_ls = flood_level_sweep(field, seeds_s.clone(), held)
+        want_ls = run_levels_impl(field, seeds_s, max_water_level=254, backend="flood", device=dev)
+        check(torch.equal(got_ls, want_ls), f"the written-out level sweep == the level driver's on {label}")
+        check(sum(skips) > 0, f"the {label} level sweep skipped tiles")
+        print(f"[13 flood] {label} level sweep (segmenting): all {len(skips)} calls bit-equal to the twin (plane and "
+              f"flags); tiles skipped of {n_flood_tiles}, first calls of a level: "
+              f"{[n for n, f in zip(skips, firsts) if f]}; later calls: {[n for n, f in zip(skips, firsts) if not f]}")
+    del got_ls, want_ls, fimg_s, seeds_s
+
     # -- 14: the level-sweep engine (backend 'pallas') at full width -----------
     def build(variant, backend):
         return getattr(TransformBuilder.default().set_device("cuda").set_backend(backend), f"build_{variant}")()
 
     level_runs = {}
-    for label, field_np in ((f"uniform {SIDE}^2", img_np), (f"10% 255-dots {SIDE}^2", dots)):
+    both = ("segmenting", "merging")
+    for label, field_np, variants in ((f"uniform {SIDE}^2", img_np, both), (f"10% 255-dots {SIDE}^2", dots, both),
+                                      (f"Poisson(30) {SIDE}^2", poisson_np, ("segmenting",))):
         seeds_f = ws.find_local_minima(field_np)
-        for variant in ("segmenting", "merging"):
+        for variant in variants:
             want = build(variant, "auto").transform(field_np, seeds_f, device_output=True)
             _ext.reset_launches()
             torch.cuda.synchronize()
@@ -531,8 +586,12 @@ def main() -> int:
             check(torch.equal(got, want), f"level-sweep {variant} labels == packed engine on {label}")
             check(counts["flood"] > 0 and counts["flood_plain"] == 0, f"level sweep launched the flood kernel ({label})")
             check(sum(counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, f"no plain twin on the level sweep ({label})")
+            check(counts["flood_tiles"] == counts["flood"], f"every level-sweep flood call ran with tile state ({label})")
+            check(counts["flood_tiles_skipped"] > 0 or label.startswith("10%"), f"the level sweep skipped tiles ({label})")
             level_runs[(label, variant)] = counts
-            print(f"[14 level sweep] {label} {variant}: labels equal the packed engine; {counts['flood']} flood calls, "
+            print(f"[14 level sweep] {label} {variant}: labels equal the packed engine; {counts['flood']} flood calls "
+                  f"skipping the sweeps of {counts['flood_tiles_skipped']} of {counts['flood'] * n_flood_tiles} tiles "
+                  f"({counts['flood_tiles_copied']} of them copied), "
                   f"{counts['merge_round']} merge rounds; API wall {wall:.1f} ms; gpu={gpu}")
     lab_u = to_dev(paint_seeds(img_np.shape, ws.find_local_minima(img_np)))
     n_seeds = int(lab_u.max())
@@ -597,8 +656,18 @@ def main() -> int:
     flood_ms = median_ms(lambda: flood_block.flood_block_kernel(fimg, fresh, 200, fs), 20)
     flood_plain_ms = median_ms(lambda: flood_block.flood_block_plain(fimg, fresh, 200, fs), 5)
     quiet_ms = median_ms(lambda: flood_block.flood_block_kernel(fimg, fixed60, 60, fs), 20)
+    # A later call after one that changed nothing: every block returns at once.
+    skip_tiles = flood_block.FloodTiles(flood_block.flood_plan(SIDE, SIDE, fs), dev)
+    skip_out = torch.empty_like(fixed60)
+
+    def skip_call():
+        return flood_block.flood_block_kernel(fimg, fixed60, 60, fs, out=skip_out, tiles=skip_tiles)
+
+    skip_ms = median_ms(skip_call, 20)
+    check(skip_tiles.flags.tolist() == [0, 0, n_flood_tiles, 0], "the quiet call skipped every tile, copying none")
     print(f"[16 time] flood {SIDE}^2 one call of {fs} sweeps at level 200 from the seeds: kernel {flood_ms:.4f} ms, "
-          f"plain {flood_plain_ms:.3f} ms; a quiet call (the level-60 fixed point) {quiet_ms:.4f} ms; gpu={gpu}")
+          f"plain {flood_plain_ms:.3f} ms; a quiet call (the level-60 fixed point) with every tile run {quiet_ms:.4f} ms, "
+          f"with every tile skipped {skip_ms:.4f} ms (CUDA events; device times in phase 19); gpu={gpu}")
 
     # -- 17: the fine scan tail's kernels against their twins -----------------
     def hold(errs, kname, got, want, what):
@@ -786,8 +855,8 @@ def main() -> int:
     check(sum(wide_counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, f"no plain twin on the {WIDE[0]}x{WIDE[1]} e2e")
     print(f"[19 wide] {WIDE[0]}x{WIDE[1]} 10% dots watershed_e2e(merging=True) equals the exact engine + oracle "
           f"on the coarse tail; launches {wide_counts}")
-    rounds_w, route_w, croute_w = coarse_tail_against_twins(f"{WIDE[0]}x{WIDE[1]} 10% dots", fixed_labels(wide))
-    check(rounds_w == wide_counts["coarse_round"] and route_w == "ring" and croute_w == "vec",
+    rounds_w, route_w, croute_w, broute_w = coarse_tail_against_twins(f"{WIDE[0]}x{WIDE[1]} 10% dots", fixed_labels(wide))
+    check(rounds_w == wide_counts["coarse_round"] and route_w == "ring" and croute_w == broute_w == "vec",
           f"{WIDE[0]}x{WIDE[1]}: the e2e's coarse tail")
     print(f"[19 wide] {WIDE[0]}x{WIDE[1]} 10% dots: coarsen (route {croute_w}) and all {rounds_w} coarse rounds (row "
           f"route {route_w}) bit-equal to the twin, planes and change counts")
@@ -858,6 +927,16 @@ def main() -> int:
         for _ in range(5):
             pack.pack_kernel(dots16_dev)
         torch.cuda.synchronize()
+        for _ in range(10):
+            flood_block.flood_block_kernel(fimg, fresh, 200, fs)
+            sm.coarse_broadcast_kernel(c_fin, lab_d)
+        torch.cuda.synchronize()
+        for _ in range(10):
+            skip_call()
+        torch.cuda.synchronize()
+        sweep_first = []
+        flood_level_sweep(img, fresh.clone(), lambda lvl_, first, *call: sweep_first.append(first))
+        torch.cuda.synchronize()
     split, rsplit = {}, {}
     for e in prof.key_averages():
         if e.device_type.name != "CUDA":
@@ -878,8 +957,16 @@ def main() -> int:
     packs = [e.time_range.elapsed_us() / 1e3 for e in on_card if "pack_bands" in e.name]
     coarsens = [e.time_range.elapsed_us() / 1e3 for e in on_card if "coarsen_strips" in e.name]
     check(len(packs) == 15 and len(coarsens) == 10, "the profiler saw pack's 15 and coarsen's 10 launches")
+    floods = [e.time_range.elapsed_us() / 1e3 for e in on_card if "flood_kernel" in e.name]
+    bcasts = [e.time_range.elapsed_us() / 1e3 for e in on_card if "broadcast_rows" in e.name]
+    check(len(floods) == 20 + len(sweep_first) and len(bcasts) == 10,
+          "the profiler saw the flood kernel's and the broadcast's launches")
     dev_ms = {"pack": float(np.median(packs[:10])), "pack 16384": float(np.median(packs[10:])),
-              "coarsen": float(np.median(coarsens))}
+              "coarsen": float(np.median(coarsens)), "flood": float(np.median(floods[:10])),
+              "coarse_broadcast": float(np.median(bcasts))}
+    sweep_dev = floods[20:]
+    first_dev = [t for t, f in zip(sweep_dev, sweep_first) if f]
+    later_dev = [t for t, f in zip(sweep_dev, sweep_first) if not f]
     print(f"[19 time] bwd_vh {BIG}^2 per launch (torch.profiler, mean of 5): column scan {split['column scan']:.4f} ms, "
           f"row kernel {split['row kernel']:.4f} ms; gpu={gpu}")
     print(f"[19 time] first coarse round {SIDE}^2 per launch (torch.profiler, mean of 10): "
@@ -887,7 +974,14 @@ def main() -> int:
     print(f"[19 time] device time (torch.profiler, median of 10, 5 at {BIG}^2): pack {SIDE}^2 {dev_ms['pack']:.4f} ms, "
           f"pack {BIG}^2 {dev_ms['pack 16384']:.4f} ms, coarsen {SIDE}^2 {dev_ms['coarsen']:.4f} ms; CUDA events around "
           f"one call: {pack_ms:.4f}, {big_ms['pack'][0]:.4f} and {coarsen_ms:.4f} ms; gpu={gpu}")
-    del round_in, round_scratch
+    print(f"[19 time] flood {SIDE}^2 device time (torch.profiler): busy call {dev_ms['flood']:.4f} ms (median of 10), "
+          f"every tile skipped {float(np.median(floods[10:20])):.4f} ms (median of 10); the uniform level sweep's "
+          f"{len(sweep_dev)} calls {sum(sweep_dev):.3f} ms in all: {len(first_dev)} first calls of a level "
+          f"{float(np.mean(first_dev)):.4f} ms mean ({float(np.median(first_dev)):.4f} median), {len(later_dev)} later "
+          f"calls {float(np.mean(later_dev)) if later_dev else 0.0:.4f} ms mean; broadcast {SIDE}^2 "
+          f"{dev_ms['coarse_broadcast']:.4f} ms (median of 10); CUDA events around one call: {flood_ms:.4f}, "
+          f"{skip_ms:.4f} and {bcast_ms:.4f} ms; gpu={gpu}")
+    del round_in, round_scratch, c_fin
     del big, exact16, v16, key16, lab16_0, y16, scratch16, lab16, dots16_dev
 
     # How the fine passes scale with the side, on one label draw per side.

@@ -20,7 +20,13 @@ the ring), and so does ``coarse_round`` (``coarse_round_ring`` /
 ``coarse_round_chunked``); ``pack`` counts its route as ``pack_vec`` (the
 band kernel with 16-byte access), ``pack_bytes`` (the band kernel with byte
 access) or ``pack_rows`` (rows wider than a band block), and ``coarsen`` as
-``coarsen_vec`` (column strips) or ``coarsen_cells`` (a thread per cell).
+``coarsen_vec`` (column strips) or ``coarsen_cells`` (a thread per cell),
+and ``coarse_broadcast`` as ``coarse_broadcast_vec`` (int4 columns over
+both fine rows) or ``coarse_broadcast_cells`` (a thread per cell).  The
+flood kernel counts its calls that ran with tile state (``flood_tiles``),
+the tiles whose sweeps those calls skipped (``flood_tiles_skipped``) and,
+of those, the tiles that copied their centre to keep the ping-pong planes
+in sync (``flood_tiles_copied``).
 """
 
 from __future__ import annotations
@@ -62,6 +68,11 @@ launches = {
     "pack_rows": 0,
     "coarsen_vec": 0,
     "coarsen_cells": 0,
+    "coarse_broadcast_vec": 0,
+    "coarse_broadcast_cells": 0,
+    "flood_tiles": 0,
+    "flood_tiles_skipped": 0,
+    "flood_tiles_copied": 0,
 }
 
 _lib = None
@@ -168,9 +179,9 @@ def lib() -> ctypes.CDLL:
         L.rwt_coarsen.restype = I
         L.rwt_coarse_round.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
         L.rwt_coarse_round.restype = I
-        L.rwt_coarse_broadcast.argtypes = [P, P, P, I, I, P]
+        L.rwt_coarse_broadcast.argtypes = [P, P, P] + [I] * 7 + [P]
         L.rwt_coarse_broadcast.restype = I
-        L.rwt_flood.argtypes = [P, P, P, P, I, I, I, I, I, P]
+        L.rwt_flood.argtypes = [P] * 7 + [I] * 13 + [P]
         L.rwt_flood.restype = I
         L.rwt_fine_fwd_v.argtypes = [P, P, P, P, I, I, I, P]
         L.rwt_fine_fwd_v.restype = I

@@ -46,7 +46,7 @@ from .. import _ext
 from ..constants import _INF, UNCOLOURED
 from .flood import flood_fixed_point, flood_sweep
 from .flood_block import DEFAULT_STEPS as FLOOD_STEPS
-from .flood_block import flood_fixed_point_block, flood_image
+from .flood_block import flood_fixed_point_block, flood_image, flood_tiles
 from .histogram import lake_sizes, value_histogram
 from .merge import merge_touching
 from .priority import relax_transform, sizes_from_levels
@@ -110,19 +110,28 @@ def _collect_loop(step, labels0, *, levels: int, vhist, collect: str, n_labels):
 
 def _flood_step(img, labels0, *, merging: bool, n_labels, steps):
     """``(step, labels0)`` of the flood-kernel level sweep: the step runs
-    flood_fixed_point_block over a pair of ping-pong planes."""
+    flood_fixed_point_block over a pair of ping-pong planes, on the card
+    with one tile state for the whole sweep (quiet tiles skipped, levels'
+    first calls run where a pixel of the level lies).  Skipped tiles write
+    nothing, so the two planes start equal, and after a merge relabels
+    one plane one device copy brings the other in sync (8 B a cell once a
+    merged level; marking every tile to run instead would cost a whole
+    call of sweeps)."""
     img_eff = flood_image(img)
     steps = FLOOD_STEPS if steps is None else int(steps)
-    scratch = torch.empty_like(labels0)
+    lab0 = labels0.clone(memory_format=torch.contiguous_format)
+    scratch = lab0.clone()
+    tiles = flood_tiles(img_eff, steps) if lab0.is_cuda else None
 
     def step(lab, lvl):
         nonlocal scratch
-        lab, scratch, painted = flood_fixed_point_block(img_eff, lab, lvl, steps=steps, scratch=scratch)
+        lab, scratch, painted = flood_fixed_point_block(img_eff, lab, lvl, steps=steps, scratch=scratch, tiles=tiles)
         if merging and (painted or lvl == 0):
             lab = merge_touching(lab, n_labels)
+            scratch.copy_(lab)
         return lab
 
-    return step, labels0.clone(memory_format=torch.contiguous_format)
+    return step, lab0
 
 
 def _shortcut(shape, device, batch, batch_mins, gmin):

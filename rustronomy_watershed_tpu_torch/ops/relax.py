@@ -51,37 +51,46 @@ ANY, LAST, SAT = 0, 1, 2  # indices into a call's flags tensor
 N_UNCL, ANY_BORDER, GMIN = 3, 4, 5  # ... and its statistics (stats=True)
 
 _BIG_LAB = 2**30
-# The kernel's launch plan (csrc/relax.cu): a block is one warp of 4-column
-# strips wide (a 128-column window) and _WARPS warps deep, each thread
-# holding _STRIP_ROWS rows of its strip in registers; its launch bounds
-# allow 512 threads at 8 rows (128 registers a thread).  A block exchanges
-# its strips' top and bottom rows in shared memory: 2 sweep parities x 4
-# rows (key and label, top and bottom) x 128 int32 per warp, 64 KB.
+# The window kernels' launch plan (csrc/relax.cu, csrc/flood.cu): a block is
+# one warp of 4-column strips wide (a 128-column window) and _WARPS warps
+# deep, each thread holding _STRIP_ROWS rows of its strip in registers;
+# their launch bounds allow 512 threads at 8 rows (128 registers a thread).
+# A relax block exchanges its strips' top and bottom rows in shared memory:
+# 2 sweep parities x 4 rows (key and label, top and bottom) x 128 int32 per
+# warp, 64 KB.
 _WIN_X = 128
 _STRIP_ROWS = 8
 _WARPS = 16
 _MAX_THREADS = 512
 
 
-def relax_plan(h: int, w: int, steps: int) -> dict:
-    """The relax kernel's launch: ``rows`` per thread strip, ``warps`` per
+def strip_plan(h: int, w: int, steps: int, kernel: str = "relax") -> dict:
+    """The launch geometry of the register-blocked window kernels (the relax
+    kernel and csrc/flood.cu): ``rows`` per thread strip, ``warps`` per
     block (``threads``), centre tiles of ``tile_y`` x ``tile_x`` (the
     window less ``steps`` cells on each side), a ``grid`` of ``(gy, gx)``
-    tiles, ``smem`` bytes of row exchange, and ``skip``: whether
-    relax_fixed_point may skip quiet tiles (a call's dependency cone, steps
-    cells, must stay inside the 8 neighbour tiles)."""
+    tiles, and ``skip``: whether a fixed point may skip quiet tiles (a
+    call's dependency cone, steps cells, must stay inside the 8 neighbour
+    tiles).  ``kernel`` names the kernel in errors."""
     rows, warps = _STRIP_ROWS, _WARPS
     if rows != 8 or not 1 <= 32 * warps <= _MAX_THREADS:
-        raise ValueError(f"no relax kernel for {rows}-row strips in {warps} warps")
+        raise ValueError(f"no {kernel} kernel for {rows}-row strips in {warps} warps")
     tile_x, tile_y = _WIN_X - 2 * steps, warps * rows - 2 * steps
     if steps < 1 or min(tile_x, tile_y) < 1:
         raise ValueError(f"steps={steps}: a {warps * rows}x{_WIN_X} window takes 1 <= steps < {min(warps * rows, _WIN_X) // 2}")
-    smem = 2 * warps * 4 * _WIN_X * 4
     grid = (-(-h // tile_y), -(-w // tile_x))
     return {
         "rows": rows, "warps": warps, "threads": 32 * warps, "tile_y": tile_y, "tile_x": tile_x,
-        "grid": grid, "n_tiles": grid[0] * grid[1], "smem": smem, "skip": steps <= min(tile_y, tile_x),
+        "grid": grid, "n_tiles": grid[0] * grid[1], "skip": steps <= min(tile_y, tile_x),
     }
+
+
+def relax_plan(h: int, w: int, steps: int) -> dict:
+    """The relax kernel's launch: ``strip_plan``'s geometry and ``smem``
+    bytes of row exchange."""
+    plan = strip_plan(h, w, steps)
+    plan["smem"] = 2 * plan["warps"] * 4 * _WIN_X * 4
+    return plan
 
 
 def quiet_tiles(changed):

@@ -383,19 +383,49 @@ def coarse_broadcast_plain(c, lab):
     return out
 
 
+# The broadcast kernel's launch plan; csrc/coarse_broadcast.cu launches it
+# as given and refuses a plan that does not cover the plane.
+_BROADCAST_THREADS = 256  # kMaxThreads: the most threads a broadcast block has
+
+
+@functools.lru_cache(maxsize=256)
+def broadcast_plan(h: int, w: int, aligned: bool = True) -> dict:
+    """The broadcast launch: ``route`` ``"vec"`` (w % 4 == 0 and the planes
+    16-byte aligned: ``threads`` threads of 4 columns each, ``k_rows``
+    coarse rows a thread (one, more where the grid's y axis would
+    overflow), ``grid`` (column blocks, row blocks)) or ``"cells"`` (a
+    thread per column and fine row, ``grid`` (column blocks, fine rows up
+    to ``_GRID_Y``; the kernel strides past it)).  Cached, so read-only."""
+    _check_width(w)
+    if w % 4 or not aligned:
+        threads = min(_BROADCAST_THREADS, 32 * -(-w // 32))
+        return types.MappingProxyType({"route": "cells", "threads": threads, "k_rows": 0,
+                                       "grid": (-(-w // threads), max(1, min(h, _GRID_Y)))})
+    hc, cols = (h + 1) // 2, w // 4
+    threads = min(_BROADCAST_THREADS, 32 * -(-cols // 32))
+    k = max(1, -(-hc // _GRID_Y))
+    return types.MappingProxyType({"route": "vec", "threads": threads, "k_rows": k,
+                                   "grid": (-(-cols // threads), max(1, -(-hc // k)))})
+
+
 def coarse_broadcast_kernel(c, lab):
-    """Launch csrc/coarse_broadcast.cu; same output as the twin."""
+    """Launch csrc/coarse_broadcast.cu; same output as the twin.  The route
+    ``broadcast_plan`` picks is counted as ``coarse_broadcast_vec`` or
+    ``coarse_broadcast_cells``."""
     _check_cuda_planes(c, lab)
     h, w = lab.shape
     _check_width(w)
     if c.shape != ((h + 1) // 2, w):
         raise ValueError(f"coarse plane {tuple(c.shape)} does not match labels {(h, w)}")
     out = torch.empty_like(lab)
+    plan = broadcast_plan(h, w, _vec(w, c, lab, out))
     err = _ext.lib().rwt_coarse_broadcast(
-        c.data_ptr(), lab.data_ptr(), out.data_ptr(), h, w, _ext.stream_ptr(lab)
+        c.data_ptr(), lab.data_ptr(), out.data_ptr(), h, w, 0 if plan["route"] == "vec" else 1,
+        plan["threads"], plan["k_rows"], *plan["grid"], _ext.stream_ptr(lab),
     )
     _ext.check(err, "rwt_coarse_broadcast")
     _ext.launches["coarse_broadcast"] += 1
+    _ext.launches[f"coarse_broadcast_{plan['route']}"] += 1
     return out
 
 

@@ -155,9 +155,9 @@ def test_flood_kernel_wrapper_refuses_cpu_misuse():
     img, lab = _case(1, shape=(8, 8))
     with pytest.raises(ValueError, match="CUDA"):
         flood_block.flood_block_kernel(_t(img), _t(lab), 3, 4)
-    assert flood_block.kernel_tile(8) == 64
+    assert flood_block.flood_plan(8, 8, 8)["tile_x"] == 112
     with pytest.raises(ValueError):
-        flood_block.kernel_tile(200)
+        flood_block.flood_plan(8, 8, 200)
 
 
 @pytest.mark.parametrize("backend", ["pallas", "jnp"])

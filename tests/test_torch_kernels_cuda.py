@@ -341,6 +341,71 @@ def test_flood_fixed_point_and_level_sweep_on_card(cuda):
         assert torch.equal(got, want)
 
 
+def _held_level_sweep(img, merging, n, log):
+    """The flood-kernel level sweep of ops/level_driver.py written out, with
+    every call held against the twin's call on the same input (plane and
+    flags) and its skipped tiles logged; returns the final labels."""
+    from rustronomy_watershed_tpu_torch.ops.histogram import value_histogram
+    from rustronomy_watershed_tpu_torch.ops.merge import merge_touching
+
+    fimg = flood_block.flood_image(img)
+    lab = seed_labels_from_mask(local_extrema_mask(img))
+    scratch, tiles = lab.clone(), flood_block.flood_tiles(fimg)
+
+    def on_call(src, dst, flags, skipped):
+        _assert_same((dst, flags), flood_block.flood_block_plain(fimg, src, lvl, flood_block.DEFAULT_STEPS))
+        log.append(skipped)
+
+    vhist = value_histogram(img).tolist()
+    for lvl in range(255):
+        if lvl and not vhist[lvl]:
+            continue
+        lab, scratch, painted = flood_block.flood_fixed_point_block(fimg, lab, lvl, scratch=scratch, tiles=tiles,
+                                                                    on_call=on_call)
+        if merging and (painted or lvl == 0):
+            lab = merge_touching(lab, n)
+            scratch.copy_(lab)
+    return lab
+
+
+@pytest.mark.parametrize("merging", [False, True])
+@pytest.mark.parametrize("kind", ["uniform", "poisson"])
+def test_flood_level_sweep_skipping_matches_twin(cuda, kind, merging):
+    """The skipping flood calls of a whole level sweep (the first call of a
+    level on the presence bits, later calls on the change bytes, the
+    post-merge copy) each equal the twin's call, tiles are skipped, and
+    the labels equal the level driver's and the exact engine's."""
+    from rustronomy_watershed_tpu_torch.ops.level_driver import run_levels_impl
+    from torch_fields import poisson_u8
+
+    shape = (600, 700)
+    a = poisson_u8(shape, seed=2) if kind == "poisson" else _field(shape, 254, seed=9)
+    img = torch.from_numpy(a).to(cuda)
+    lab0 = seed_labels_from_mask(local_extrema_mask(img))
+    n = int(lab0.max())
+    log = []
+    got = _held_level_sweep(img, merging, n, log)
+    assert sum(log) > 0 and len(log) > 1, log
+    _ext.reset_launches()
+    drv = run_levels_impl(img, lab0, n_labels=n, max_water_level=254, merging=merging, backend="flood", device=cuda)
+    assert _ext.launches["flood_tiles"] == _ext.launches["flood"] and _ext.launches["flood_tiles_skipped"] > 0
+    want = run_levels_impl(img, lab0, n_labels=n, max_water_level=254, merging=merging, backend="relax", device=cuda)
+    assert torch.equal(got, drv) and torch.equal(drv, want)
+
+
+def test_flood_call_with_every_tile_skipped(cuda):
+    """With no tile changed and not a level's first call every block
+    returns at once: the output buffer is untouched, the flags are zero
+    and the skipped count is the number of tiles."""
+    img, lab = _flood_state((500, 700), 40, 20, seed=4)
+    tiles = flood_block.FloodTiles(flood_block.flood_plan(500, 700, 8), cuda)
+    out = torch.full_like(lab, -3)
+    _, flags = flood_block.flood_block_kernel(img, lab, 20, 8, out=out, tiles=tiles)
+    torch.cuda.synchronize()
+    assert flags.tolist() == [0, 0] and tiles.flags[2].item() == tiles.plan["n_tiles"]
+    assert (out == -3).all()
+
+
 def test_flood_kernel_refuses_aliased_output(cuda):
     img, lab = _flood_state((16, 16), 9, 3, seed=0)
     with pytest.raises(ValueError, match="alias"):
@@ -484,6 +549,29 @@ def test_relax_fixed_point_skips_quiet_tiles(cuda):
     want = relax.relax_fixed_point(v.cpu(), key.cpu(), lab.cpu(), stats=True)
     _assert_same(got[:2], [t.to(cuda) for t in want[:2]])
     assert got[2:] == want[2:]
+
+
+@pytest.mark.parametrize(
+    "shape,route",
+    [((64, 96), "vec"), ((1025, 1028), "vec"), ((1, 4), "vec"), ((5, 4), "vec"), ((4096, 4096), "vec"),
+     ((1023, 1031), "cells"), ((33, 3), "cells"), ((70001, 5), "cells"), ("unaligned", "cells")],
+)
+def test_coarse_broadcast_routes_match_twin(cuda, shape, route):
+    """The broadcast on both routes against its twin, on sparse labels and
+    a random coarse plane: odd h (a last coarse row of one fine row), w = 4
+    (both border columns in one int4), w % 4 != 0, w = 3, more fine rows
+    than the cell route's grid, an unaligned plane; the route counted."""
+    h, w = (130, 260) if shape == "unaligned" else shape
+    lab = torch.from_numpy(_sparse_labels((h, w), h + w)).to(cuda)
+    vals = torch.from_numpy(np.random.default_rng(w).integers(1, 1 << 24, ((h + 1) // 2, w)).astype(np.int32)).to(cuda)
+    c = (sm.coarsen_kernel(lab) & ~sm._CVAL) | vals
+    if shape == "unaligned":
+        lab = _unaligned(lab)
+    assert sm.broadcast_plan(h, w, sm._vec(w, c, lab))["route"] == route
+    _ext.reset_launches()
+    got = sm.coarse_broadcast_kernel(c, lab)
+    assert _ext.launches["coarse_broadcast"] == _ext.launches[f"coarse_broadcast_{route}"] == 1
+    _assert_same([got], [sm.coarse_broadcast_plain(c, lab)])
 
 
 def _unaligned(x):

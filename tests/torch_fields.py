@@ -31,3 +31,10 @@ def seed_lattice(shape, seed=0):
 def plateau(shape, seed=0):
     """A u8 image of values 0..3: wide plateaus, few strict maxima."""
     return np.random.default_rng(seed).integers(0, 4, shape).astype(np.uint8)
+
+
+def poisson_u8(shape, lam=30.0, seed=0):
+    """The JAX package's Poisson counts field (utils/fields.py:23, the same
+    draw) as a u8 image: values clipped to 0..254, a narrow range around
+    ``lam``."""
+    return np.clip(np.random.default_rng(seed).poisson(lam, size=shape), 0, 254).astype(np.uint8)

@@ -2,7 +2,7 @@
 """Time the PyTorch port's end-to-end transforms of one or more checkouts,
 in turns, on one NVIDIA GPU.
 
-    python3 tools/torch_ab.py [--profile] [--side N] DIR [DIR ...]
+    python3 tools/torch_ab.py [--profile] [--side N] [--level-sweep] DIR [DIR ...]
 
 Each DIR is the root of a checkout of this repository (``.`` for this one);
 name a DIR twice to run it twice, e.g. ``old new new old`` for an A/B on one
@@ -17,6 +17,12 @@ flag reads inside).  ``--profile`` also traces 5 runs of each under
 ``torch.profiler``: device busy time per run (the union of the card's kernel,
 copy and set intervals), the wall of the same traced runs (CUDA events), the
 idle share 1 - busy / wall, and the device time per kernel name.
+``--level-sweep`` times the level-sweep engine instead (``run_levels_impl``,
+``backend="flood"``, the flood kernel) from the seeds of the image, painted:
+segmenting on the uniform field and on the Poisson(30) counts field of
+``tests/torch_fields.py`` (median of 5; traced once with ``--profile``),
+and merging on the uniform field once (its merge phase runs about a minute
+at 4096^2).
 
 Prints the card's name and power limit, then one JSON line per run.
 """
@@ -53,7 +59,27 @@ def _busy_us(events) -> float:
     return busy
 
 
-def child(profile: bool, side: int) -> dict:
+def _level_sweep_cases(side: int, dev) -> dict:
+    import numpy as np
+    import torch
+
+    from rustronomy_watershed_tpu_torch.ops.level_driver import run_levels_impl
+    from rustronomy_watershed_tpu_torch.ops.seeds import local_extrema_mask, seed_labels_from_mask
+
+    dense = _fields(side)[0]
+    poisson = np.clip(np.random.default_rng(0).poisson(30.0, (side, side)), 0, 254).astype(np.uint8)
+    cases = {}
+    for name, a, merging in (("level_sweep_segmenting", dense, False), ("level_sweep_segmenting_poisson", poisson, False),
+                             ("level_sweep_merging", dense, True)):
+        img = torch.from_numpy(a).to(dev)
+        lab0 = seed_labels_from_mask(local_extrema_mask(img))
+        n = int(lab0.max())
+        cases[name] = (lambda img=img, lab0=lab0, n=n, merging=merging: run_levels_impl(
+            img, lab0, n_labels=n, max_water_level=254, merging=merging, backend="flood", device=dev))
+    return cases
+
+
+def child(profile: bool, side: int, level_sweep: bool = False) -> dict:
     import numpy as np
     import torch
 
@@ -62,6 +88,8 @@ def child(profile: bool, side: int) -> dict:
 
     dev = torch.device("cuda")
     _ext.lib()
+    if level_sweep:
+        return _timed_cases(_level_sweep_cases(side, dev), profile, side, reps=5, traced=1, once={"level_sweep_merging"})
     dense, dots = (torch.from_numpy(a).to(dev) for a in _fields(side))
     cases = {
         "segmenting": lambda: watershed_e2e(dense, device=dev),
@@ -79,6 +107,17 @@ def child(profile: bool, side: int) -> dict:
                 sm._COARSE_MULTI = True
 
         cases["merging_nan10_legacy"] = legacy
+    return _timed_cases(cases, profile, side, reps=9, traced=5)
+
+
+def _timed_cases(cases: dict, profile: bool, side: int, *, reps: int, traced: int, once=frozenset()) -> dict:
+    """Time each case (median of ``reps`` warm runs, one for the cases in
+    ``once``) and, with ``profile``, trace ``traced`` more runs of the
+    others."""
+    import numpy as np
+    import torch
+
+    from rustronomy_watershed_tpu_torch import _ext
 
     def timed(fn, reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -91,30 +130,35 @@ def child(profile: bool, side: int) -> dict:
 
     out = {"checkout": os.getcwd(), "side": side}
     for name, fn in cases.items():
-        try:
+        if name in once:  # one run, counted and timed (its kernels are warm from the others)
+            _ext.reset_launches()
+            ms = timed(fn, 1)
+            counts = {k: v for k, v in _ext.launches.items() if v}
+        else:
+            try:
+                fn()
+            except NotImplementedError:  # a checkout that does not serve it
+                out[name] = None
+                continue
+            torch.cuda.synchronize()
+            _ext.reset_launches()
             fn()
-        except NotImplementedError:  # a checkout that does not serve it
-            out[name] = None
-            continue
-        torch.cuda.synchronize()
-        _ext.reset_launches()
-        fn()
-        counts = {k: v for k, v in _ext.launches.items() if v}
-        ms = float(np.median([timed(fn, 1) for _ in range(9)]))
+            counts = {k: v for k, v in _ext.launches.items() if v}
+            ms = float(np.median([timed(fn, 1) for _ in range(reps)]))
         res = {"ms": ms, "mpix_s": side * side / ms / 1e3, "launches": counts}
-        if profile:
+        if profile and name not in once:
             from torch.profiler import ProfilerActivity, profile as prof_ctx
 
             with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                wall = timed(fn, 5)
+                wall = timed(fn, traced)
             busy = _busy_us(prof.events()) / 1e3
             per_kernel = {}
             for e in prof.key_averages():
                 t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
                 if t and e.device_type.name == "CUDA":
-                    per_kernel[e.key[:60]] = t / 1e3 / 5
+                    per_kernel[e.key[:60]] = t / 1e3 / traced
             res.update(
-                traced_wall_ms=wall / 5, busy_ms=busy / 5, idle_share=1 - busy / wall,
+                traced_wall_ms=wall / traced, busy_ms=busy / traced, idle_share=1 - busy / wall,
                 device_ms_by_kernel=dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]),
             )
         out[name] = res
@@ -122,15 +166,15 @@ def child(profile: bool, side: int) -> dict:
 
 
 def main(argv) -> int:
-    profile = "--profile" in argv
-    argv = [a for a in argv if a != "--profile"]
+    profile, level_sweep = "--profile" in argv, "--level-sweep" in argv
+    argv = [a for a in argv if a not in ("--profile", "--level-sweep")]
     side = 4096
     if "--side" in argv:
         i = argv.index("--side")
         side = int(argv[i + 1])
         argv = argv[:i] + argv[i + 2 :]
     if argv and argv[0] == "--child":
-        print(json.dumps(child(profile, side)))
+        print(json.dumps(child(profile, side, level_sweep)))
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
@@ -144,7 +188,8 @@ def main(argv) -> int:
     for d in argv:
         d = os.path.abspath(d)
         env = dict(os.environ, PYTHONPATH=d)
-        cmd = [sys.executable, me, "--child", "--side", str(side)] + (["--profile"] if profile else [])
+        cmd = ([sys.executable, me, "--child", "--side", str(side)] + (["--profile"] if profile else [])
+               + (["--level-sweep"] if level_sweep else []))
         res = subprocess.run(cmd, cwd=d, env=env, capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stderr[-4000:], file=sys.stderr)

@@ -36,6 +36,21 @@ CUTS = [
      '    packs = [1.0] * 15  # no device trace on the CPU\n'),
     ('    coarsens = [e.time_range.elapsed_us() / 1e3 for e in on_card if "coarsen_strips" in e.name]\n',
      '    coarsens = [1.0] * 10\n'),
+    # The CPU profiler records every op of the twin: keep the traced level
+    # sweep out of it (phase 13 runs it untraced).
+    ('        flood_level_sweep(img, fresh.clone(), lambda lvl_, first, *call: sweep_first.append(first))\n',
+     '        sweep_first = [True, False]\n'),
+    ('    floods = [e.time_range.elapsed_us() / 1e3 for e in on_card if "flood_kernel" in e.name]\n',
+     '    floods = [1.0] * (20 + len(sweep_first))\n'),
+    ('    bcasts = [e.time_range.elapsed_us() / 1e3 for e in on_card if "broadcast_rows" in e.name]\n',
+     '    bcasts = [1.0] * 10\n'),
+    # The level driver keeps tile state for CUDA planes only; a 256^2 field has
+    # too few tiles for its level sweep to skip any.
+    ('check(counts["flood_tiles"] == counts["flood"], f"every level-sweep flood call ran with tile state ({label})")',
+     'pass'),
+    ('check(sum(skips) > 0, f"the {label} level sweep skipped tiles")', 'print("skips", sum(skips))'),
+    ('check(counts["flood_tiles_skipped"] > 0 or label.startswith("10%"), f"the level sweep skipped tiles ({label})")',
+     'pass'),
     ('(1024, 1024)', '(512, 512)'),
     ('0, 1024, 60', '0, 512, 60'),
     ('integers(1, 1023, (40, 2))', 'integers(1, 511, (40, 2))'),
@@ -51,7 +66,7 @@ CUTS = [
 
 def _fake_kernels():
     from rustronomy_watershed_tpu_torch import _ext
-    from rustronomy_watershed_tpu_torch.ops import flood_block, pack, pipeline, relax
+    from rustronomy_watershed_tpu_torch.ops import flood, flood_block, pack, pipeline, relax
     from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
 
     def as_kernel(plain, key):
@@ -85,7 +100,13 @@ def _fake_kernels():
 
     sm.coarsen_kernel = coarsen_routed
     sm.coarse_round_kernel = as_kernel(sm.coarse_round_plain, "coarse_round")
-    sm.coarse_broadcast_kernel = as_kernel(sm.coarse_broadcast_plain, "coarse_broadcast")
+    broadcast = as_kernel(sm.coarse_broadcast_plain, "coarse_broadcast")
+
+    def broadcast_routed(c, lab):
+        _ext.launches[f"coarse_broadcast_{sm.broadcast_plan(*lab.shape, sm._vec(lab.shape[1], c, lab))['route']}"] += 1
+        return broadcast(c, lab)
+
+    sm.coarse_broadcast_kernel = broadcast_routed
     for name in ("fwd_v", "bwd_vh", "cfwd_v", "cbwd_vh"):
         setattr(sm, f"{name}_kernel", as_kernel(getattr(sm, f"{name}_plain"), name))
     bwd_vh = sm.bwd_vh_kernel
@@ -103,12 +124,49 @@ def _fake_kernels():
 
     sm.coarse_round_kernel = coarse_round_routed
     _ext.sm_count = lambda dev: 132
+    # Shallower windows (32 x 128, 16 x 112 tiles at 8 steps), so that the
+    # cut fields have tiles to skip.
+    relax._WARPS = 4
     # The cut BIG x BIG field keeps the full size's label bound, so that it
     # takes the fine tail as 16384^2 does.
     bound = pipeline.max_seed_count
     pipeline.max_seed_count = lambda shape: 1 << 26 if tuple(shape) == (320, 320) else bound(shape)
     sm._dispatch = lambda kernel, plain, lead: kernel
-    flood_block.flood_block_kernel = as_kernel(flood_block.flood_block_plain, "flood")
+    flood_plain = as_kernel(flood_block.flood_block_plain, "flood")
+
+    def flood_tiled(img, lab, lvl, steps, *, out=None, tiles=None, first=False):
+        """The twin, with the kernel's tile state: the run rule on the
+        plan's tiles, the change bytes and the counts of tiles that ran no
+        sweeps and of those that copied."""
+        new, flags = flood_plain(img, lab, lvl, steps, out=out)
+        if tiles is None:
+            return new, flags
+        _ext.launches["flood_tiles"] += 1
+        (gy, gx), ty, tx = tiles.plan["grid"], tiles.plan["tile_y"], tiles.plan["tile_x"]
+        prev, chg = tiles.next_call(first)
+        if prev is None:
+            run = copy = torch.ones((gy, gx), dtype=torch.bool)
+        else:
+            prev = prev.view(gy, gx).to(torch.int32)
+            run = flood_block.flood_active_tiles(prev, tiles.presence, lvl, first)
+            copy = ((prev & flood_block.CHANGED) != 0) & ~run
+        before_last = lab
+        for _ in range(steps - 1):
+            before_last = flood.flood_sweep(img, before_last, lvl, mask=True)
+
+        def per_tile(moved_cells):
+            moved = torch.zeros((gy * ty, gx * tx), dtype=torch.bool)
+            moved[: lab.shape[0], : lab.shape[1]] = moved_cells
+            return moved.view(gy, ty, gx, tx).any(3).any(1).to(torch.uint8)
+
+        bits = per_tile(new != lab) | per_tile(new != before_last) << 1
+        chg.copy_(torch.where(run, bits, 0).view(-1))
+        tiles.flags[:2] = flags
+        tiles.flags[2] = int((~run).sum())
+        tiles.flags[3] = int((copy & ~run).sum())
+        return new, tiles.flags[:2]
+
+    flood_block.flood_block_kernel = flood_tiled
     flood_block.flood_block = lambda *a, **k: flood_block.flood_block_kernel(*a, **k)
     _ext.lib = lambda: None
     _ext.library_path = lambda: "(no library: rehearsal)"
