@@ -729,12 +729,18 @@ def main() -> int:
         windows = [("legacy windows", sm._legacy_window)]
         if lab is lab_d:
             windows.append(("full width", lambda k: None))
+        if label.startswith("odd"):  # RWT_COARSE_HWIN=2 and =300 on every round
+            windows += [("window 2", lambda k: 2), ("window 300", lambda k: 300)]
+        route = "chunked" if lab.shape[1] > sm._ROW_CAP else "ring"
         for sched, window in windows:
+            _ext.reset_launches()
             cfin, rounds = rounds_against_twins(sm.coarsen_kernel(lab), coarse_passes, legacy_err, f"{label} ({sched})", window)
+            check(_ext.launches[f"cbwd_vh_{route}"] == _ext.launches["cbwd_vh"] == rounds,
+                  f"cbwd_vh took the {route} row route on {label} ({sched})")
             check(torch.equal(sm.coarse_broadcast_kernel(cfin, lab), sm.component_min_labels_plain(lab)),
                   f"legacy coarse tail == oracle on {label} ({sched})")
             print(f"[18 legacy] {label} ({sched}): cfwd_v and cbwd_vh bit-equal to their twins over all "
-                  f"{rounds} rounds; tail == oracle")
+                  f"{rounds} rounds (row route {route}); tail == oracle")
     # The legacy schedule's own path: the merging transform with the switch off.
     default_d = watershed_e2e(dots_dev, merging=True, device=dev)
     sm._COARSE_MULTI = False
@@ -748,11 +754,13 @@ def main() -> int:
         sm._COARSE_MULTI = True
     check(legacy_counts["cfwd_v"] > 0 and legacy_counts["cbwd_vh"] > 0 and legacy_counts["coarse_round"] == 0,
           "the legacy merging e2e launched cfwd_v and cbwd_vh, no coarse_round")
+    check(legacy_counts["cbwd_vh_ring"] == legacy_counts["cbwd_vh"], "the legacy merging e2e's cbwd_vh took the ring")
     check(sum(legacy_counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, "no plain twin on the legacy merging e2e")
     check(torch.equal(legacy_d, default_d), "legacy schedule == default coarse tail")
     print(f"[18 legacy] {SIDE}^2 10% dots watershed_e2e(merging=True) with RWT_COARSE_MULTI=0 equals the default: "
           f"{legacy_counts['cbwd_vh']} legacy rounds against {merge_runs['10% dots']['coarse_round']} default rounds; "
-          f"{legacy_ms:.3f} ms against {dots_ms:.3f} ms; launches {legacy_counts}; gpu={gpu}")
+          f"{legacy_ms:.3f} ms against {dots_ms:.3f} ms (ratio {legacy_ms / dots_ms:.2f}); launches {legacy_counts}; "
+          f"gpu={gpu}")
 
     y_d = sm.fwd_v_kernel(lab_d)[0]
     c_d = sm.coarsen_kernel(lab_d)
@@ -891,6 +899,8 @@ def main() -> int:
           f"({tail_ms16 / tail_rounds16:.3f} ms per round); gpu={gpu}")
     y16 = sm.fwd_v_kernel(lab16)[0]
     scratch16 = torch.empty_like(y16)
+    leg_in = sm.cfwd_v_kernel(round_in)[0]  # a legacy round's pass-2 input at 4096^2
+    leg_scratch = torch.empty_like(leg_in)
     big_ms = {
         "relax2d": (median_ms(lambda: relax.relax_block_kernel(v16, key16, lab16_0, s), 10),
                     median_ms(lambda: relax.relax_block_plain(v16, key16, lab16_0, s), 3)),
@@ -920,6 +930,11 @@ def main() -> int:
             sm.bwd_vh_kernel(y16, scratch=scratch16)
         for _ in range(10):
             sm.coarse_round_kernel(round_in, scratch=round_scratch)
+        for h_window in (sm._COARSE_HWIN, None):  # a legacy round: windowed, then full width
+            for _ in range(10):
+                sm.cbwd_vh_kernel(leg_in, h_window, scratch=leg_scratch)
+        for _ in range(10):
+            sm.cfwd_v_kernel(round_in)
         for _ in range(10):
             pack.pack_kernel(img)
             sm.coarsen_kernel(lab_d)
@@ -961,9 +976,18 @@ def main() -> int:
     bcasts = [e.time_range.elapsed_us() / 1e3 for e in on_card if "broadcast_rows" in e.name]
     check(len(floods) == 20 + len(sweep_first) and len(bcasts) == 10,
           "the profiler saw the flood kernel's and the broadcast's launches")
+    # The legacy round's launches: cfwd_v, and cbwd_vh's column pass and ring
+    # row pass (10 windowed, then 10 full width).
+    cfwds = [e.time_range.elapsed_us() / 1e3 for e in on_card if "v_pass<true, true>" in e.name]
+    vcols = [e.time_range.elapsed_us() / 1e3 for e in on_card if "v_pass<true, false>" in e.name]
+    hwins = [e.time_range.elapsed_us() / 1e3 for e in on_card if "hwin_ring" in e.name]
+    check(len(cfwds) == 10 and len(vcols) == len(hwins) == 20, "the profiler saw the legacy round's launches")
+    leg = {"cfwd_v": float(np.median(cfwds)), "column pass": float(np.median(vcols)),
+           "ring row pass windowed": float(np.median(hwins[:10])), "ring row pass full width": float(np.median(hwins[10:]))}
     dev_ms = {"pack": float(np.median(packs[:10])), "pack 16384": float(np.median(packs[10:])),
               "coarsen": float(np.median(coarsens)), "flood": float(np.median(floods[:10])),
-              "coarse_broadcast": float(np.median(bcasts))}
+              "coarse_broadcast": float(np.median(bcasts)), "cfwd_v": leg["cfwd_v"],
+              "cbwd_vh": leg["column pass"] + leg["ring row pass windowed"]}
     sweep_dev = floods[20:]
     first_dev = [t for t, f in zip(sweep_dev, sweep_first) if f]
     later_dev = [t for t, f in zip(sweep_dev, sweep_first) if not f]
@@ -971,6 +995,11 @@ def main() -> int:
           f"row kernel {split['row kernel']:.4f} ms; gpu={gpu}")
     print(f"[19 time] first coarse round {SIDE}^2 per launch (torch.profiler, mean of 10): "
           + ", ".join(f"{k} {t:.4f} ms" for k, t in rsplit.items()) + f"; gpu={gpu}")
+    print(f"[19 time] legacy round {SIDE}^2 per launch (torch.profiler, median of 10): "
+          + ", ".join(f"{k} {t:.4f} ms" for k, t in leg.items())
+          + f"; cbwd_vh windowed {leg['column pass'] + leg['ring row pass windowed']:.4f} ms, full width "
+          f"{leg['column pass'] + leg['ring row pass full width']:.4f} ms; bound {pass_bounds['cbwd_vh'][0]:.4f} ms "
+          f"each pass; gpu={gpu}")
     print(f"[19 time] device time (torch.profiler, median of 10, 5 at {BIG}^2): pack {SIDE}^2 {dev_ms['pack']:.4f} ms, "
           f"pack {BIG}^2 {dev_ms['pack 16384']:.4f} ms, coarsen {SIDE}^2 {dev_ms['coarsen']:.4f} ms; CUDA events around "
           f"one call: {pack_ms:.4f}, {big_ms['pack'][0]:.4f} and {coarsen_ms:.4f} ms; gpu={gpu}")
@@ -981,7 +1010,7 @@ def main() -> int:
           f"calls {float(np.mean(later_dev)) if later_dev else 0.0:.4f} ms mean; broadcast {SIDE}^2 "
           f"{dev_ms['coarse_broadcast']:.4f} ms (median of 10); CUDA events around one call: {flood_ms:.4f}, "
           f"{skip_ms:.4f} and {bcast_ms:.4f} ms; gpu={gpu}")
-    del round_in, round_scratch, c_fin
+    del round_in, round_scratch, c_fin, leg_in, leg_scratch
     del big, exact16, v16, key16, lab16_0, y16, scratch16, lab16, dots16_dev
 
     # How the fine passes scale with the side, on one label draw per side.

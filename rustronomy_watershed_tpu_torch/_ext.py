@@ -16,8 +16,9 @@ transform: ``merge_shortcut`` (the single-component broadcast) or
 counts its label-table rounds as ``merge_round`` (ops/merge.py).  The fine
 ``bwd_vh`` kernel also counts the route of its row launch: ``bwd_vh_ring``
 (the shared-memory ring row kernel) or ``bwd_vh_chunked`` (rows wider than
-the ring), and so does ``coarse_round`` (``coarse_round_ring`` /
-``coarse_round_chunked``); ``pack`` counts its route as ``pack_vec`` (the
+the ring), and so do ``coarse_round`` (``coarse_round_ring`` /
+``coarse_round_chunked``) and the legacy ``cbwd_vh`` (``cbwd_vh_ring`` /
+``cbwd_vh_chunked``); ``pack`` counts its route as ``pack_vec`` (the
 band kernel with 16-byte access), ``pack_bytes`` (the band kernel with byte
 access) or ``pack_rows`` (rows wider than a band block), and ``coarsen`` as
 ``coarsen_vec`` (column strips) or ``coarsen_cells`` (a thread per cell),
@@ -63,6 +64,8 @@ launches = {
     "bwd_vh_chunked": 0,
     "coarse_round_ring": 0,
     "coarse_round_chunked": 0,
+    "cbwd_vh_ring": 0,
+    "cbwd_vh_chunked": 0,
     "pack_vec": 0,
     "pack_bytes": 0,
     "pack_rows": 0,
@@ -189,7 +192,7 @@ def lib() -> ctypes.CDLL:
         L.rwt_fine_bwd_vh.restype = I
         L.rwt_coarse_fwd_v.argtypes = [P, P, P, I, I, P]
         L.rwt_coarse_fwd_v.restype = I
-        L.rwt_coarse_bwd_vh.argtypes = [P, P, P, P, I, I, I, P]
+        L.rwt_coarse_bwd_vh.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
         L.rwt_coarse_bwd_vh.restype = I
         L.rwt_error_string.argtypes = [I]
         L.rwt_error_string.restype = ctypes.c_char_p

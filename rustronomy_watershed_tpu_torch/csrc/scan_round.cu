@@ -86,14 +86,21 @@
 // so the directions stay apart.  The h-pass is `row_ring` with no shadow
 // row and no stencil; rows over kRowCap cells take run_min_pass<true>.
 //
-// The legacy coarse passes (v_pass<true,*>, run_min_pass<true>, hwin_pass,
-// violations<true>) are the chunked-carry design: a block owns 32 columns
-// or 8 rows, each line is cut into 32 chunks, one thread per chunk; a
-// thread folds its chunk into a (value, reset-seen) aggregate, one thread
-// per line chains the aggregates into each chunk's carry (shared memory),
-// and the thread rescans its chunk from that carry.  Vertical launches are
-// coalesced; horizontal ones walk rows at a stride and lean on L1.  The
-// windowed scan walks at most `reach` cells each way from each cell.
+// The legacy coarse passes.  Their column scans (v_pass<true,*>: cfwd_v,
+// and cbwd_vh's first launch) are the chunked-carry design: a block owns 32
+// columns, each cut into 32 chunks, one thread per chunk; a thread folds its
+// chunk into a (value, reset-seen) aggregate, one thread per column chains
+// the aggregates into each chunk's carry (shared memory), and the thread
+// rescans its chunk from that carry; every access is coalesced, and cfwd_v
+// runs at about 60% of its bound on the H100.  cbwd_vh's row half is
+// `hwin_ring`: row_ring's TMA ring and block scans, with the h-window exact
+// at O(1) work a cell (van Herk / Gil-Werman blocks of reach + 1 columns)
+// and the whole violation stencil fused (a windowed scan leaves rows not
+// constant along their runs, so horizontal pairs are checked too, and each
+// band recomputes the row above it, as the fine kernel does).  Rows wider
+// than the ring keep the chunked launches: run_min_pass<true> (a block owns
+// 8 rows walked at a stride) or hwin_pass (a thread per cell walking at
+// most `reach` cells each way), then violations<true> over the output.
 
 #include <cstdint>
 #include <type_traits>
@@ -289,10 +296,11 @@ run_min_pass(const int32_t* __restrict__ in, int32_t* __restrict__ out,
   }
 }
 
-// The windowed horizontal pass of the coarse plane: each cell takes the min
-// of a forward scan reaching at most `reach` cells back and a backward scan
-// reaching at most `reach` cells ahead, each stopping after the first cell
-// that resets it.  in -> out, which must not alias.
+// The windowed horizontal pass of the coarse plane for rows wider than the
+// ring: each cell takes the min of a forward scan reaching at most `reach`
+// cells back and a backward scan reaching at most `reach` cells ahead, each
+// stopping after the first cell that resets it.  in -> out, which must not
+// alias.
 __global__ void __launch_bounds__(256)
 hwin_pass(const int32_t* __restrict__ in, int32_t* __restrict__ out, int hc,
           int w, int reach) {
@@ -365,6 +373,8 @@ constexpr int kTileRows = kTileWarps * kWarpRows;  // ops/scan_merge.py _VSCAN_T
 constexpr int kCells = 20;                          // row kernel: cells per thread
 constexpr int kRing = 3;                            // row kernel: buffers in the ring
 constexpr int kRowCap = 18432;                      // ops/scan_merge.py _ROW_CAP
+constexpr int kWinThreads = 480;  // hwin_ring<true>: the most threads whose six buffers fit a block
+constexpr int kHC = 20;           // hwin_ring: cells per thread (ops/scan_merge.py _LEGACY_CELLS)
 
 __device__ __forceinline__ int comb(int a, int b) {
   return (b & kR) ? b : (min(a & kVM, b) | (a & kR));
@@ -574,6 +584,147 @@ __device__ __forceinline__ int phase_of(const int32_t* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
 }
 
+// The row kernels' ring (row_ring, hwin_ring): kRing buffers of one step's
+// span each, buffer positions matching the plane's 16-byte lines.
+
+// Thread 0: the ring's mbarriers, one per buffer.
+__device__ __forceinline__ void ring_init(uint64_t* bars, int n = kRing) {
+  for (int b = 0; b < n; ++b)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bars[b])) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Thread 0 fills buffer `buf` with the S cells at `src`, cell i at buffer
+// position phase_of(src) + i: the 16-byte-aligned body by one bulk copy on
+// `bar`, the ragged ends (at most three cells each) by cp.async, first
+// waiting until the bulk store that last read the buffer (all but the newest
+// bulk group) is done with it.
+__device__ __forceinline__ void ring_fill(int* buf, const int32_t* src, int S, uint64_t* bar) {
+  const int ph = phase_of(src);
+  int* dst = buf + ph;
+  const int hd = min(S, (4 - ph) & 3), nq = (S - hd) >> 2;
+  asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+  for (int i = 0; i < hd; ++i) cp_async4(dst + i, src + i);
+  for (int i = hd + 4 * nq; i < S; ++i) cp_async4(dst + i, src + i);
+  mbar_expect(bar, 16u * nq);
+  if (nq > 0) bulk_load(dst + hd, src + hd, 16u * nq, bar);
+}
+
+// Stores cells [lo, S) of a step (cell i at cur[i], cur's 16-byte lines at
+// phase ph) to dst: one bulk copy of the 16-byte-aligned body where dst's
+// lines match the ring's, the ends by threads; else every cell by threads.
+// Commits one bulk group either way (empty in the second), which ring_fill
+// counts.
+__device__ __forceinline__ void ring_store(int32_t* dst, const int* cur, int lo, int S, int ph, int tid, int T) {
+  if (phase_of(dst) == ph) {
+    const int hd = min(S, lo + ((4 - ((ph + lo) & 3)) & 3)), nq = (S - hd) >> 2;
+    if (tid == 0) {
+      if (nq > 0) bulk_store(dst + hd, cur + hd, 16u * nq);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+    if (tid < hd - lo) dst[lo + tid] = cur[lo + tid];
+    if (tid < S - hd - 4 * nq) dst[hd + 4 * nq + tid] = cur[hd + 4 * nq + tid];
+  } else {
+    if (tid == 0) asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    for (int i = lo + tid; i < S; i += T) dst[i] = cur[i];
+  }
+}
+
+// Exclusive block scans of one element per thread under comb: NF forward
+// (threads in order) and NB backward (in reverse order).  On return each
+// element holds the combination of the threads before its thread in its
+// scan's order (kInf, no restart, for the first).  s_f, s_b: NF and NB rows
+// of 32 ints of shared memory.  Every thread of the block calls it; two
+// barriers.  The second level scans the warps' aggregates in warp 0, or, for
+// more than two scans in a block of as many warps, one warp a scan.
+template <int NF, int NB>
+__device__ __forceinline__ void block_scans(int (&f)[NF], int (&b)[NB], int (*s_f)[32], int (*s_b)[32]) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  int xf[NF], xb[NB];
+#pragma unroll
+  for (int j = 0; j < NF; ++j) xf[j] = f[j];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) xb[j] = b[j];
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const int y = __shfl_up_sync(0xffffffffu, xf[j], d);
+      if (lane >= d) xf[j] = comb(y, xf[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int y = __shfl_down_sync(0xffffffffu, xb[j], d);
+      if (lane + d < 32) xb[j] = comb(y, xb[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    f[j] = __shfl_up_sync(0xffffffffu, xf[j], 1);
+    if (lane == 0) f[j] = kInf;
+    if (lane == 31) s_f[j][wid] = xf[j];
+  }
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    b[j] = __shfl_down_sync(0xffffffffu, xb[j], 1);
+    if (lane == 31) b[j] = kInf;
+    if (lane == 0) s_b[j][wid] = xb[j];
+  }
+  __syncthreads();
+  if (NF + NB > 2 && nw >= NF + NB) {
+    // One warp a scan.
+    if (wid < NF + NB) {
+      int* row = wid < NF ? s_f[wid] : s_b[wid - NF];
+      int p = lane < nw ? row[lane] : kInf;
+      if (wid < NF) {
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, p, d);
+          if (lane >= d) p = comb(y, p);
+        }
+        const int q = __shfl_up_sync(0xffffffffu, p, 1);
+        if (lane < nw) row[lane] = lane == 0 ? kInf : q;
+      } else {
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int y = __shfl_down_sync(0xffffffffu, p, d);
+          if (lane + d < 32) p = comb(y, p);
+        }
+        const int q = __shfl_down_sync(0xffffffffu, p, 1);
+        if (lane < nw) row[lane] = lane == 31 ? kInf : q;
+      }
+    }
+  } else if (wid == 0) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      int p = lane < nw ? s_f[j][lane] : kInf;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, p, d);
+        if (lane >= d) p = comb(y, p);
+      }
+      const int q = __shfl_up_sync(0xffffffffu, p, 1);
+      if (lane < nw) s_f[j][lane] = lane == 0 ? kInf : q;
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      int p = lane < nw ? s_b[j][lane] : kInf;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_down_sync(0xffffffffu, p, d);
+        if (lane + d < 32) p = comb(y, p);
+      }
+      const int q = __shfl_down_sync(0xffffffffu, p, 1);
+      if (lane < nw) s_b[j][lane] = lane == 31 ? kInf : q;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < NF; ++j) f[j] = comb(s_f[j][wid], f[j]);
+#pragma unroll
+  for (int j = 0; j < NB; ++j) b[j] = comb(s_b[j][wid], b[j]);
+}
+
 // The fine horizontal run-min (border rows kept) fused with the vertical
 // half of the violation stencil: scratch `in` -> `out`, which must not
 // alias.  Block b owns rows [b * band_rows, +band_rows) and walks them from
@@ -602,27 +753,15 @@ row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* fla
   const int rs = (r0 > 0 && !kCoarse) ? r0 - 1 : r0;
   const int n_steps = (r_end - rs + G - 1) / G;
 
-  // Thread 0 fills buffer s % 3 for step s: the 16-byte-aligned body by
-  // one bulk copy on the buffer's mbarrier, the ragged ends (at most three
-  // cells each) by cp.async, first waiting until the bulk store that last
-  // read the buffer (step s - 3) is done with it.
+  // Thread 0 fills buffer s % 3 for step s (ring_fill waits for the bulk
+  // store of step s - 3 from it).
   auto issue = [&](int s) {
-    const int a = rs + s * G, S = min(G, r_end - a) * w;
-    const int32_t* src = in + (size_t)a * w;
-    const int ph = phase_of(src);
-    int* dst = ring + (s % kRing) * L + ph;
-    const int hd = min(S, (4 - ph) & 3), nq = (S - hd) >> 2;
-    asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
-    for (int i = 0; i < hd; ++i) cp_async4(dst + i, src + i);
-    for (int i = hd + 4 * nq; i < S; ++i) cp_async4(dst + i, src + i);
-    mbar_expect(&s_bar[s % kRing], 16u * nq);
-    if (nq > 0) bulk_load(dst + hd, src + hd, 16u * nq, &s_bar[s % kRing]);
+    const int a = rs + s * G;
+    ring_fill(ring + (s % kRing) * L, in + (size_t)a * w, min(G, r_end - a) * w, &s_bar[s % kRing]);
   };
 
   if (tid == 0) {
-    for (int b = 0; b < kRing; ++b)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&s_bar[b])) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    ring_init(s_bar);
     issue(0);
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
@@ -734,7 +873,8 @@ row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* fla
     }
 
     // Block scans of the (value, restarted) aggregates: forward over the
-    // threads in order, backward in reverse.
+    // threads in order, backward in reverse (block_scans<1, 1> written out:
+    // calling it gave row_ring<false> 4 bytes of spills, -Xptxas -v).
     int xf = af, xb = ab;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
@@ -837,21 +977,8 @@ row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* fla
       }
       __syncthreads();  // the previous buffer is free for the next load
     }
-    // Store the step's rows (not the shadow row): one bulk copy of the
-    // 16-byte-aligned body where the output's lines match the ring's, the
-    // ends by threads.
-    if (phase_of(dst) == ph) {
-      const int hd = min(S, lo + ((4 - ((ph + lo) & 3)) & 3)), nq = (S - hd) >> 2;
-      if (tid == 0) {
-        if (nq > 0) bulk_store(dst + hd, cur + hd, 16u * nq);
-        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-      }
-      if (tid < hd - lo) dst[lo + tid] = cur[lo + tid];
-      if (tid < S - hd - 4 * nq) dst[hd + 4 * nq + tid] = cur[hd + 4 * nq + tid];
-    } else {
-      if (tid == 0) asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-      for (int i = lo + tid; i < S; i += T) dst[i] = cur[i];
-    }
+    // Store the step's rows (not the shadow row).
+    ring_store(dst, cur, lo, S, ph, tid, T);
   }
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
   if constexpr (kCoarse) {
@@ -862,19 +989,362 @@ row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* fla
   }
 }
 
-// Lets row_ring<kCoarse> take `smem` bytes of dynamic shared memory on
-// the current device; the attribute is set again only when a launch needs
-// more than it was last set to there.
-template <bool kCoarse>
-cudaError_t ring_smem(int smem) {
-  static int set_to[16] = {};
+// The legacy coarse pass 2's row half with the violation stencil fused
+// (rwt_coarse_bwd_vh's ring route): scratch `in` (the backward column scan
+// of the pass's input, whose reset bits it keeps) -> `out`, which must not
+// alias.  The ring walk is row_ring's with the fine form's shadow row: block
+// b owns rows [b * band_rows, +band_rows) and walks them from the row above
+// its band (computed for the stencil, not stored), a step of at most
+// rows_per_step whole rows in buffer s % 3, cell i at buffer position
+// phase + i, thread t owning positions [20t, 20t + 20).  A cell takes
+// min(hf, hb): hf the forward scan under bit 26 reaching at most `reach`
+// cells back, hb the backward scan under bit 27 reaching `reach` ahead, each
+// stopping at (and taking) the cell that resets it; a row's ends reset both;
+// empty cells scan as kInf and stay.  With reach < 0 or >= w - 1 both are
+// the whole run (row_ring<true>'s run-min).  Windowed, B = reach + 1 is a
+// power of two and blocks of B columns start at each row's column 0 (van
+// Herk / Gil-Werman: O(1) work a cell, whatever the window); kWin selects
+// the windowed form (reach >= 0 and < w - 1): a ring of four buffers (two
+// steps loaded ahead) and two for G and H, at most kWinThreads threads
+// (128 registers each):
+//   hf[x] = Pf[x] if a forward reset lies in [x - B + 1, x], else
+//           min(H[x - B + 1], G[x]);
+//   hb[x] = Pb[x] if a backward reset lies in [x, x + B - 1], else
+//           min(H[x], G[x + B - 1]);
+// Pf and Pb the run scans, G the min from x's block start to x, H the min
+// from x to its block end (both in shared memory after the ring, for the
+// reads B - 1 cells away), and the nearest resets from scans of their
+// positions.  Each scan is segmented inside a thread's cells; block_scans
+// gives the carries into its leading (trailing) segment.  `flag` gets 1 when
+// some pair joined by an edge (the later cell's bit 24 clear for a vertical
+// pair, bit 26 for a horizontal one) holds two values: a windowed scan
+// leaves a row not constant along its runs, so both halves are checked, on
+// the step's output in the ring (the row above a step's first row ends the
+// previous buffer; a band's first row has its shadow row above it).
+template <bool kWin>
+__global__ void __launch_bounds__(kWin ? kWinThreads : 1024)
+hwin_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* flag, int h, int w,
+          int rows_per_step, int band_rows, int reach) {
+  extern __shared__ int4 ring4[];
+  int* ring = reinterpret_cast<int*>(ring4);
+  constexpr int kD = kWin ? kRing + 1 : kRing;  // ring buffers: windowed, two steps prefetched
+  __shared__ int s_f[3][32], s_b[3][32];
+  __shared__ uint64_t s_bar[kD];
+  constexpr unsigned kAll = (1u << kHC) - 1u;
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int L = T * kHC, p0 = tid * kHC;  // cells of one buffer; the thread's first position
+  const int G = rows_per_step;
+  const int r0 = blockIdx.x * band_rows, r_end = min(h, r0 + band_rows);
+  const int rs = r0 > 0 ? r0 - 1 : 0;
+  const int n_steps = (r_end - rs + G - 1) / G;
+  const int B = reach + 1;
+  int* gs = ring + kD * L;  // windowed: G, then H, at the step's buffer positions
+  int* hs = gs + L;
+
+  auto issue = [&](int s) {
+    const int a = rs + s * G;
+    ring_fill(ring + (s % kD) * L, in + (size_t)a * w, min(G, r_end - a) * w, &s_bar[s % kD]);
+  };
+  // Steps 0 .. kD - 3 are loaded ahead of the loop, one commit group each.
+  if (tid == 0) ring_init(s_bar, kD);
+#pragma unroll
+  for (int s = 0; s < kD - 2; ++s) {
+    if (tid == 0 && s < n_steps) issue(s);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+  __syncthreads();  // the mbarriers are initialised
+  bool bad = false;
+  for (int s = 0; s < n_steps; ++s) {
+    // Step s + kD - 2 loads into the buffer of step s - 2, which step s - 1
+    // read as the row above before its last barrier; ring_fill waits for
+    // that step's bulk store.
+    if (tid == 0 && s + kD - 2 < n_steps) issue(s + kD - 2);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    if constexpr (kD == 4) {
+      asm volatile("cp.async.wait_group 2;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    }
+    mbar_wait(&s_bar[s % kD], (s / kD) & 1);
+    __syncthreads();
+    const int a = rs + s * G, S = min(G, r_end - a) * w;
+    const int ph = phase_of(in + (size_t)a * w);
+    int* buf = ring + (s % kD) * L;
+    const int i0 = p0 - ph;  // the thread's first cell in the span (negative: before it)
+
+    // Masks, bit k for cell k: inside the span, first / last of its row.
+    unsigned m_in, m_first, m_last;
+    if (G == 1) {
+      const int lo_k = max(0, -i0), hi_k = min(kHC, S - i0);
+      m_in = hi_k > lo_k ? ((1u << hi_k) - 1u) & ~((1u << lo_k) - 1u) : 0u;
+      m_first = (i0 <= 0 && -i0 < kHC) ? 1u << -i0 : 0u;
+      m_last = (S - 1 - i0 >= 0 && S - 1 - i0 < kHC) ? 1u << (S - 1 - i0) : 0u;
+    } else {
+      m_in = m_first = m_last = 0;
+      int col = i0 > 0 ? i0 % w : i0;
+#pragma unroll
+      for (int k = 0; k < kHC; ++k) {
+        if (i0 + k >= 0 && i0 + k < S) {
+          m_in |= 1u << k;
+          if (col == 0) m_first |= 1u << k;
+          if (col == w - 1) m_last |= 1u << k;
+        }
+        if (++col == w) col = 0;
+      }
+    }
+    const unsigned out_k = ~m_in & kAll;
+    const int4* own = reinterpret_cast<const int4*>(buf) + tid * (kHC / 4);
+    // The cells' values (kInf outside the span) and reset bits.
+    int v[kHC];
+    unsigned bf = 0, bb = 0, bv = 0;
+#pragma unroll
+    for (int q = 0; q < kHC / 4; ++q) {
+      const int4 x = own[q];
+      const int c[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = 4 * q + j;
+        bf |= static_cast<unsigned>((c[j] >> kHf) & 1) << k;
+        bb |= static_cast<unsigned>((c[j] >> kHb) & 1) << k;
+        bv |= static_cast<unsigned>((c[j] >> kVf) & 1) << k;
+        v[k] = ((m_in >> k) & 1) ? value_of<true>(c[j]) : kInf;
+      }
+    }
+    const unsigned rf = bf | out_k | m_first, rb = bb | out_k | m_last;
+
+    int o[kHC];  // min(hf, hb)
+    if constexpr (!kWin) {
+      // The run-min, as row_ring<true>: local scans, then the carries into
+      // the leading and trailing runs.
+      int f = kInf, b = kInf;
+#pragma unroll
+      for (int k = 0; k < kHC; ++k) {
+        f = ((rf >> k) & 1) ? v[k] : min(f, v[k]);
+        o[k] = f;
+      }
+#pragma unroll
+      for (int k = kHC - 1; k >= 0; --k) {
+        b = ((rb >> k) & 1) ? v[k] : min(b, v[k]);
+        o[k] = min(o[k], b);
+      }
+      int xf[1] = {f | (rf ? kR : 0)}, xb[1] = {b | (rb ? kR : 0)};
+      block_scans(xf, xb, s_f, s_b);
+      const int cf = xf[0] & kVM, cb = xb[0] & kVM;
+      const unsigned lead = rf ? (rf & -rf) - 1u : ~0u;
+      const unsigned trail = rb ? ~((2u << (31 - __clz(rb))) - 1u) : ~0u;
+#pragma unroll
+      for (int k = 0; k < kHC; ++k)
+        o[k] = __vimin3_s32(o[k], ((lead >> k) & 1) ? cf : kInf, ((trail >> k) & 1) ? cb : kInf);
+    } else {
+      // Block starts and ends (a row's ends too); cells outside the span
+      // restart every scan.  One row a step: the starts are every B-th cell
+      // from the first at or after the thread's (rep: bits B apart).
+      unsigned bs = 0, be = 0;
+      if (G == 1) {
+        const unsigned rep = B >= 32 ? 1u : 0xffffffffu / ((1u << B) - 1u);
+        const int k0 = -i0 & reach;
+        bs = k0 < kHC ? rep << k0 : 0u;
+        be = (bs >> 1) | (((i0 + kHC) & reach) == 0 ? 1u << (kHC - 1) : 0u);
+      } else {
+        int col = i0 > 0 ? i0 % w : i0;
+#pragma unroll
+        for (int k = 0; k < kHC; ++k) {
+          bs |= static_cast<unsigned>((col & reach) == 0) << k;
+          be |= static_cast<unsigned>((col & reach) == reach) << k;
+          if (++col == w) col = 0;
+        }
+      }
+      const unsigned rg = (bs & m_in) | out_k | m_first, rh = (be & m_in) | out_k | m_last;
+      // The thread's aggregates: Pf, G and the last forward reset's
+      // position; Pb, H and the first backward reset's.
+      int f = kInf, g = kInf, b = kInf, hh = kInf;
+#pragma unroll
+      for (int k = 0; k < kHC; ++k) {
+        f = ((rf >> k) & 1) ? v[k] : min(f, v[k]);
+        g = ((rg >> k) & 1) ? v[k] : min(g, v[k]);
+      }
+#pragma unroll
+      for (int k = kHC - 1; k >= 0; --k) {
+        b = ((rb >> k) & 1) ? v[k] : min(b, v[k]);
+        hh = ((rh >> k) & 1) ? v[k] : min(hh, v[k]);
+      }
+      int xf[3] = {f | (rf ? kR : 0), g | (rg ? kR : 0), rf ? (p0 + 31 - __clz(rf)) | kR : kInf};
+      int xb[3] = {b | (rb ? kR : 0), hh | (rh ? kR : 0), rb ? (p0 + __ffs(rb) - 1) | kR : kInf};
+      block_scans(xf, xb, s_f, s_b);
+      // G and H of the thread's cells, from the carries.
+      g = xf[1] & kVM;
+      hh = xb[1] & kVM;
+#pragma unroll
+      for (int q = 0; q < kHC / 4; ++q) {
+        int y[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = 4 * q + j;
+          y[j] = g = ((rg >> k) & 1) ? v[k] : min(g, v[k]);
+        }
+        reinterpret_cast<int4*>(gs + p0)[q] = make_int4(y[0], y[1], y[2], y[3]);
+      }
+#pragma unroll
+      for (int q = kHC / 4 - 1; q >= 0; --q) {
+        int y[4];
+#pragma unroll
+        for (int j = 3; j >= 0; --j) {
+          const int k = 4 * q + j;
+          y[j] = hh = ((rh >> k) & 1) ? v[k] : min(hh, v[k]);
+        }
+        reinterpret_cast<int4*>(hs + p0)[q] = make_int4(y[0], y[1], y[2], y[3]);
+      }
+      __syncthreads();
+      // hf, then min(hf, hb).  The thread's H[p - B + 1] and G[p + B - 1]
+      // come as int2 pairs from the cell before the first (an even
+      // position: B is even), with 2-way bank conflicts as int4 reads would
+      // have; they stay inside the G and H arrays (or the ring below them),
+      // since B <= L - 3.  in_f, in_b: bit k when cell k's window holds a
+      // reset (every cell outside the span restarts both scans at itself),
+      // from the thread's resets by doubling and the nearest ones before
+      // and after it; such a cell takes its run scan instead.
+      unsigned in_f = rf, in_b = rb;
+      for (int sh = 1; sh < B && sh < kHC; sh <<= 1) {
+        in_f |= in_f << sh;
+        in_b |= in_b >> sh;
+      }
+      // Cells [0, n_f) reach back to the last reset before the thread (if
+      // any); cells [n_b, kHC) ahead to the first one after it.
+      const int n_f = (xf[2] & kR) ? (xf[2] & kVM) + B - p0 : 0, n_b = (xb[2] & kVM) - B + 1 - p0;
+      in_f |= n_f >= kHC ? kAll : (n_f > 0 ? (1u << n_f) - 1u : 0u);
+      in_b |= n_b <= 0 ? kAll : (n_b < kHC ? kAll & ~((1u << n_b) - 1u) : 0u);
+      int x[kHC + 2];
+      const int2* hw = reinterpret_cast<const int2*>(hs + p0 - B);
+#pragma unroll
+      for (int q = 0; q < kHC / 2 + 1; ++q) {
+        const int2 y = hw[q];
+        x[2 * q] = y.x, x[2 * q + 1] = y.y;
+      }
+      int pf = xf[0] & kVM;
+#pragma unroll
+      for (int q = 0; q < kHC / 4; ++q) {
+        const int4 g4 = reinterpret_cast<const int4*>(gs + p0)[q];
+        const int gq[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = 4 * q + j;
+          pf = ((rf >> k) & 1) ? v[k] : min(pf, v[k]);
+          o[k] = ((in_f >> k) & 1) ? pf : min(x[k + 1], gq[j]);
+        }
+      }
+      const int2* gw = reinterpret_cast<const int2*>(gs + p0 + B - 2);
+#pragma unroll
+      for (int q = 0; q < kHC / 2 + 1; ++q) {
+        const int2 y = gw[q];
+        x[2 * q] = y.x, x[2 * q + 1] = y.y;
+      }
+      int pb = xb[0] & kVM;
+#pragma unroll
+      for (int q = kHC / 4 - 1; q >= 0; --q) {
+        const int4 h4 = reinterpret_cast<const int4*>(hs + p0)[q];
+        const int hq[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+        for (int j = 3; j >= 0; --j) {
+          const int k = 4 * q + j;
+          pb = ((rb >> k) & 1) ? v[k] : min(pb, v[k]);
+          o[k] = min(o[k], ((in_b >> k) & 1) ? pb : min(hq[j], x[k + 1]));
+        }
+      }
+    }
+
+    // The output cells into the buffer; o becomes their values, 0 for an
+    // empty cell or one outside the span (v = kInf), as the stencil
+    // compares them.
+    int4* mine = reinterpret_cast<int4*>(buf) + tid * (kHC / 4);
+#pragma unroll
+    for (int q = 0; q < kHC / 4; ++q) {
+      const int4 x = own[q];
+      const int c[4] = {x.x, x.y, x.z, x.w};
+      int y[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = 4 * q + j;
+        o[k] = v[k] == kInf ? 0 : o[k];
+        y[j] = (c[j] & ~kVal) | o[k];
+      }
+      mine[q] = make_int4(y[0], y[1], y[2], y[3]);
+    }
+    // Pairs to check: vertical where bit 24 is clear, horizontal where bit
+    // 26 is clear and the cell is not first in its row.  Step 0's first row
+    // is row 0 (no row above) or the shadow row (its pairs are the band
+    // above's).  d: bit k when cell k differs from its neighbour.
+    unsigned ev = ~bv & m_in, eh = ~bf & m_in & ~m_first;
+    if (s == 0) {
+      const int n0 = w - i0;  // cells of the thread in the first row
+      const unsigned row0 = n0 >= kHC ? kAll : (n0 > 0 ? (1u << n0) - 1u : 0u);
+      ev &= ~row0;
+      if (r0 > 0) eh &= ~row0;
+    }
+    unsigned d = 0;
+#pragma unroll
+    for (int k = 1; k < kHC; ++k) d |= static_cast<unsigned>(o[k - 1] != o[k]) << k;
+    bad |= (d & eh & ~1u) != 0;
+    // The first row's cells against the row above, which ends the previous
+    // buffer; the other pairs against this step's output, after the barrier.
+    const int* cur = buf + ph;
+    const unsigned first_row = (i0 < w ? 2u << min(w - 1 - i0, kHC - 1) : 1u) - 1u;
+    if (ev & first_row) {
+      const int ph_prev = phase_of(in + (size_t)(a - G) * w);
+      const int* prev = ring + ((s + kD - 1) % kD) * L;
+      d = 0;
+      if (G == 1 && ph_prev == ph) {
+        // One row a step, aligned alike in both buffers: the cell above
+        // lies at the same position in the previous buffer.
+        const int4* up = reinterpret_cast<const int4*>(prev) + tid * (kHC / 4);
+#pragma unroll
+        for (int q = 0; q < kHC / 4; ++q) {
+          const int4 u = up[q];
+          const int us[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) d |= static_cast<unsigned>(label_of<true>(us[j]) != o[4 * q + j]) << (4 * q + j);
+        }
+      } else {
+        prev += ph_prev + G * w;
+#pragma unroll
+        for (int k = 0; k < kHC; ++k)
+          if (((ev & first_row) >> k) & 1) d |= static_cast<unsigned>(label_of<true>(prev[i0 + k - w]) != o[k]) << k;
+      }
+      bad |= (d & ev & first_row) != 0;
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    // Store the step's rows (not the shadow row), then check the pairs that
+    // reach into other threads' cells of this step.
+    ring_store(out + (size_t)a * w, cur, (s == 0 && r0 > 0) ? w : 0, S, ph, tid, T);
+    if (eh & 1u) bad |= label_of<true>(cur[i0 - 1]) != o[0];
+    if (ev & ~first_row) {
+#pragma unroll
+      for (int k = 0; k < kHC; ++k)
+        if (((ev & ~first_row) >> k) & 1) bad |= label_of<true>(cur[i0 + k - w]) != o[k];
+    }
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  if (__syncthreads_or(bad) && tid == 0) atomicOr(flag, 1);
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory on the current
+// device; `set_to` (the caller's, one entry per device) keeps what it was
+// last set to there, so that it is set again only when a launch needs more.
+template <typename K>
+cudaError_t allow_smem(K kernel, int smem, int (&set_to)[16]) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 16 && set_to[dev] >= smem) return cudaSuccess;
-  e = cudaFuncSetAttribute(row_ring<kCoarse>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess && dev < 16) set_to[dev] = smem;
   return e;
+}
+
+template <bool kCoarse>
+cudaError_t ring_smem(int smem) {
+  static int set_to[16] = {};
+  return allow_smem(row_ring<kCoarse>, smem, set_to);
 }
 
 dim3 cell_grid(int h, int w) {
@@ -971,31 +1441,6 @@ extern "C" int rwt_fine_bwd_vh(const void* in, void* scratch, void* out, void* f
   return static_cast<int>(cudaGetLastError());
 }
 
-namespace {
-
-int coarse_fwd_v(const int32_t* in, int32_t* out, int32_t* flag, int h, int w, cudaStream_t st) {
-  v_pass<true, true><<<(w + 31) / 32, dim3(32, kChunks), 0, st>>>(in, out, flag, h, w);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int coarse_bwd_vh(const int32_t* in, int32_t* scratch, int32_t* out, int32_t* flag, int h, int w, int reach,
-                  cudaStream_t st) {
-  v_pass<true, false><<<(w + 31) / 32, dim3(32, kChunks), 0, st>>>(in, scratch, nullptr, h, w);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (reach >= 0 && reach < w - 1) {
-    hwin_pass<<<cell_grid(h, w), 256, 0, st>>>(scratch, out, h, w, reach);
-  } else {
-    run_min_pass<true><<<(h + 7) / 8, dim3(kChunks, 8), 0, st>>>(scratch, out, nullptr, h, w);
-  }
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  violations<true><<<cell_grid(h, w), 256, 0, st>>>(out, flag, h, w);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
 // in, out: (h, w) int32 packed coarse planes; `out` may be `in`.  flag: one
 // int32, zeroed here, then 1 when some cell changed.  Launches on `stream`,
 // does not synchronise, returns cudaGetLastError().
@@ -1004,23 +1449,66 @@ extern "C" int rwt_coarse_fwd_v(const void* in, void* out, void* flag, int h, in
   cudaError_t e = cudaMemsetAsync(flag, 0, sizeof(int32_t), st);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (h == 0 || w == 0) return 0;
-  return coarse_fwd_v(static_cast<const int32_t*>(in), static_cast<int32_t*>(out),
-                      static_cast<int32_t*>(flag), h, w, st);
+  v_pass<true, true><<<(w + 31) / 32, dim3(32, kChunks), 0, st>>>(
+      static_cast<const int32_t*>(in), static_cast<int32_t*>(out), static_cast<int32_t*>(flag), h, w);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // in, scratch, out: (h, w) int32 packed coarse planes; `out` may be `in`,
-// `scratch` aliases neither.  reach: the horizontal window (cells each way),
-// or < 0 for full length.  flag: one int32, zeroed here, then 1 when the
-// output violates the fixed point.  Launches three kernels on `stream`, does
-// not synchronise, returns cudaGetLastError().
-extern "C" int rwt_coarse_bwd_vh(const void* in, void* scratch, void* out, void* flag, int h, int w,
-                                 int reach, void* stream) {
+// `scratch` aliases neither.  reach: the horizontal window (cells each way,
+// 2^k - 1), or < 0 for full length.  flag: one int32, zeroed here, then 1
+// when the output violates the fixed point.  The backward column scan in ->
+// scratch (v_pass), then the row plan (ops/scan_merge.py legacy_row_plan):
+// `threads` > 0 runs hwin_ring with `rows_per_step` rows per step, a block
+// per `band_rows` rows and `smem` bytes of ring (and, windowed, of the block
+// mins); `threads` == 0 (rows wider than the ring, or windowed rows whose
+// buffers do not fit a block) the chunked windowed or full-length scan and
+// the stencil launch.  Launches on `stream`, does not
+// synchronise, returns cudaGetLastError().
+extern "C" int rwt_coarse_bwd_vh(const void* in, void* scratch, void* out, void* flag, int h, int w, int reach,
+                                 int rows_per_step, int band_rows, int threads, int smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(flag, 0, sizeof(int32_t), st);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (h == 0 || w == 0) return 0;
-  return coarse_bwd_vh(static_cast<const int32_t*>(in), static_cast<int32_t*>(scratch),
-                       static_cast<int32_t*>(out), static_cast<int32_t*>(flag), h, w, reach, st);
+  const bool win = reach >= 0 && reach < w - 1;
+  if (win && (reach & (reach + 1)) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (threads != 0 && (w > kRowCap || threads % 32 != 0 || threads > 1024 || rows_per_step < 1 || band_rows < 1 ||
+             (long long)rows_per_step * w + 3 > (long long)threads * kHC ||
+             (win && (threads > kWinThreads || reach + 4 > threads * kHC)) ||
+             smem != (win ? kRing + 3 : kRing) * threads * kHC * 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int32_t* i = static_cast<const int32_t*>(in);
+  int32_t* s = static_cast<int32_t*>(scratch);
+  int32_t* o = static_cast<int32_t*>(out);
+  int32_t* f = static_cast<int32_t*>(flag);
+  v_pass<true, false><<<(w + 31) / 32, dim3(32, kChunks), 0, st>>>(i, s, nullptr, h, w);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (threads == 0) {
+    if (win) {
+      hwin_pass<<<cell_grid(h, w), 256, 0, st>>>(s, o, h, w, reach);
+    } else {
+      run_min_pass<true><<<(h + 7) / 8, dim3(kChunks, 8), 0, st>>>(s, o, nullptr, h, w);
+    }
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    violations<true><<<cell_grid(h, w), 256, 0, st>>>(o, f, h, w);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static int set_to[2][16] = {};
+  const unsigned n_bands = (h + band_rows - 1) / band_rows;
+  if (win) {
+    e = allow_smem(hwin_ring<true>, smem, set_to[1]);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    hwin_ring<true><<<n_bands, threads, smem, st>>>(s, o, f, h, w, rows_per_step, band_rows, reach);
+  } else {
+    e = allow_smem(hwin_ring<false>, smem, set_to[0]);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    hwin_ring<false><<<n_bands, threads, smem, st>>>(s, o, f, h, w, rows_per_step, band_rows, reach);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // c, scratch, out: (hc, w) int32 packed coarse planes; `out` may be `c`,

@@ -537,6 +537,7 @@ _MIN_BAND = 32  # rows per block at least, so the shadow row costs < ~3%
 _COARSE_STEP = 4096  # cells per ring step of the coarse h-pass: about 220 threads a block
 _SM_SMEM = 233472  # shared memory of one SM (Hopper: 228 KB) ...
 _BLOCK_SMEM = 1024 + 512  # ... of which a block also takes the system's 1 KB and its static arrays
+_WIN_THREADS = 480  # kWinThreads: the most threads of the windowed legacy row kernel (6 buffers)
 _SM_THREADS = 2048
 
 
@@ -578,6 +579,39 @@ def row_plan(h: int, w: int, n_sm: int, coarse: bool = False) -> dict:
         "route": "ring", "rows_per_step": g, "band_rows": band, "n_bands": -(-h // band),
         "threads": threads, "smem": smem,
     }
+
+
+# Rows a band of the legacy pass 2's row kernel at least: its shadow row then
+# costs at most 1/8 of the rows read (fastest of 4, 8, 16 and 32 at 4096^2 on
+# the H100: tools/torch_legacy_plans.py).
+_LEGACY_MIN_BAND = 8
+
+
+@functools.lru_cache(maxsize=256)
+def legacy_row_plan(h: int, w: int, n_sm: int, reach: int = -1) -> dict:
+    """The row launch of the legacy coarse pass 2 (``cbwd_vh``, h-scans
+    reaching ``reach`` cells, -1 for the whole row): ``route`` ``"ring"``
+    (rows of at most ``_ROW_CAP`` cells) with the coarse round's steps
+    (``rows_per_step`` whole rows, about ``_COARSE_STEP`` cells), ``threads``
+    per block, ``smem`` bytes of ring and, windowed (``0 <= reach < w -
+    1``), a fourth ring buffer (two steps loaded ahead) and two more
+    buffers of its size for the block mins; a block per
+    ``band_rows`` rows, spread over the blocks the SMs hold together, but at
+    least ``_LEGACY_MIN_BAND`` rows, since each band also computes the row
+    above it for the stencil (the shadow row).  ``"chunked"`` for wider
+    rows, and for windowed rows of more than ``_WIN_THREADS`` threads' cells
+    (9597).  Cached, so read-only."""
+    plan = row_plan(h, w, n_sm, coarse=True)
+    g, threads = plan["rows_per_step"], plan["threads"]
+    win = 0 <= reach < w - 1
+    smem = (_ROW_RING + 3 * win) * threads * _ROW_CELLS * 4
+    if plan["route"] == "chunked" or (win and threads > _WIN_THREADS):
+        return types.MappingProxyType({"route": "chunked", "rows_per_step": 0, "band_rows": 0, "n_bands": 0,
+                                       "threads": 0, "smem": 0})
+    per_sm = max(1, min(_SM_SMEM // (smem + _BLOCK_SMEM), _SM_THREADS // threads))
+    band = max(-(-h // (n_sm * per_sm)), _LEGACY_MIN_BAND, g)
+    return types.MappingProxyType({"route": "ring", "rows_per_step": g, "band_rows": band, "n_bands": -(-h // band),
+                                   "threads": threads, "smem": smem})
 
 
 def _vec(w: int, *planes) -> bool:
@@ -646,15 +680,23 @@ def cfwd_v_kernel(c, *, out=None):
 
 
 def cbwd_vh_kernel(c, h_window=None, *, out=None, scratch=None):
+    """Launch the legacy coarse pass 2 of csrc/scan_round.cu: the backward
+    column scan ``c`` -> ``scratch``, then the windowed (or full-length)
+    h-scans with the violation stencil fused (``scratch`` -> ``out``, which
+    may be ``c``) on the route ``legacy_row_plan`` picks, counted as
+    ``cbwd_vh_ring`` or ``cbwd_vh_chunked``."""
     out, scratch = _round_planes(c, out, scratch)
     flag = _flag_on(c)
     hc, w = c.shape
+    reach = _reach(w, h_window)
+    plan = legacy_row_plan(hc, w, _ext.sm_count(c.get_device()), reach)
     err = _ext.lib().rwt_coarse_bwd_vh(
-        c.data_ptr(), scratch.data_ptr(), out.data_ptr(), flag.data_ptr(), hc, w, _reach(w, h_window),
-        _ext.stream_ptr(c),
+        c.data_ptr(), scratch.data_ptr(), out.data_ptr(), flag.data_ptr(), hc, w, reach, plan["rows_per_step"],
+        plan["band_rows"], plan["threads"], plan["smem"], _ext.stream_ptr(c),
     )
     _ext.check(err, "rwt_coarse_bwd_vh")
     _ext.launches["cbwd_vh"] += 1
+    _ext.launches[f"cbwd_vh_{plan['route']}"] += 1
     return out, flag
 
 

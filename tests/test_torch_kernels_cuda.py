@@ -606,3 +606,75 @@ def test_coarse_round_routes_match_twin(cuda, shape):
         assert rounds < 10000
     assert _ext.launches["coarse_round"] == _ext.launches[f"coarse_round_{route}"] == rounds
     _assert_same([sm.coarse_broadcast_kernel(c.contiguous(), lab)], [sm.component_min_labels_plain(lab)])
+
+
+# Fine label shapes whose coarse planes the legacy pass 2 runs on: the
+# 4096^2 NaN-dot field's 2048 x 4096, odd h and w, w = 3, w % 4 != 0 (rows
+# at every phase of their 16-byte lines), many bands of few columns, rows
+# past the ring, and an unaligned plane.
+LEGACY_SHAPES = [(4096, 4096), (1023, 1031), (33, 3), (130, 262), (9001, 700), (300, 18440), "unaligned"]
+LEGACY_WINDOWS = [None, 2, 256, 300, 8192]
+
+
+@pytest.mark.parametrize("h_window", LEGACY_WINDOWS, ids=[f"win{w}" for w in LEGACY_WINDOWS])
+@pytest.mark.parametrize("shape", LEGACY_SHAPES, ids=[s if isinstance(s, str) else f"{s[0]}x{s[1]}" for s in LEGACY_SHAPES])
+def test_cbwd_vh_in_and_out_of_place(cuda, shape, h_window):
+    """The legacy pass 2 on a coarse plane, on pass 1's output of it and on
+    a plane three legacy rounds into the tail, out of place and in place
+    (``out`` is the input, as the round loop passes it): plane and flag
+    equal the twin's, on the row route ``legacy_row_plan`` names."""
+    lab = _relaxed_labels((130, 262) if shape == "unaligned" else shape, seed=7, nan=0.05)
+    c = sm.coarsen_kernel(lab)
+    if shape == "unaligned":
+        c = _unaligned(c)
+    y = sm.cfwd_v_kernel(c)[0]
+    late = y.clone()
+    for k in range(3):
+        late = sm.cfwd_v_kernel(sm.cbwd_vh_kernel(late, sm._legacy_window(k))[0])[0]
+    hc, w = c.shape
+    route = sm.legacy_row_plan(hc, w, _ext.sm_count(cuda), sm._reach(w, h_window))["route"]
+    assert route == ("chunked" if w > sm._ROW_CAP else "ring")
+    for x in (c, y, late):
+        want = sm.cbwd_vh_plain(x, h_window)
+        _ext.reset_launches()
+        _assert_same(sm.cbwd_vh_kernel(x, h_window), want)
+        xi = x.clone()
+        _assert_same(sm.cbwd_vh_kernel(xi, h_window, out=xi, scratch=torch.empty_like(xi)), want)
+        assert _ext.launches["cbwd_vh"] == _ext.launches[f"cbwd_vh_{route}"] == 2
+
+
+@pytest.mark.parametrize("shape", [(2048, 4096), (4501, 700), (6000, 5), (64, 1031)])
+def test_cbwd_vh_violation_across_band_and_step_boundaries(cuda, shape):
+    """A coarse plane whose only violated pair straddles a band start
+    (vertical, checked through the band's shadow row) or a step start
+    inside a band (vertical, against the previous ring buffer), or lies in
+    a band's first row or the row above it (horizontal, left unequal by a
+    window of 2): flag 1, as the twin; joined, flag 0."""
+    hc, w = shape
+    plan = sm.legacy_row_plan(hc, w, _ext.sm_count(cuda), sm._reach(w, None))
+    assert plan["route"] == "ring" and plan["n_bands"] > 2
+    r0, g = plan["band_rows"] * (plan["n_bands"] // 2), plan["rows_per_step"]
+    # The band's steps start at its shadow row r0 - 1: the second at r0 - 1 + g.
+    rows = {"band": r0, "step": r0 - 1 + g if g > 1 else r0 + 1, "above a band": r0 - 1}
+    every = 0xF << 24  # an empty cell: every reset bit, no edge
+    for where, r in rows.items():
+        for kind in ("v", "h"):
+            if kind == "v" and where == "above a band":
+                continue
+            c = torch.full(shape, every, dtype=torch.int32, device=cuda)
+            if kind == "v":
+                x = w // 2
+                c[r - 1, x] = 5 | every
+                c[r, x] = 9 | (every & ~(1 << 24))  # an edge to the cell above
+                joined = c.clone()
+                joined[r, x] = 5 | (every & ~(1 << 24))
+                cases = ((c, None, 1), (joined, None, 0))
+            else:  # 3, 5, 9 along a row's last three cells, joined by edges
+                c[r, w - 3] = 3 | (every & ~(1 << 27))
+                c[r, w - 2] = 5 | (every & ~(1 << 26) & ~(1 << 27))
+                c[r, w - 1] = 9 | (every & ~(1 << 26))
+                cases = ((c, 2, 1), (c, None, 0))
+            for plane, h_window, violated in cases:
+                want = sm.cbwd_vh_plain(plane, h_window)
+                assert want[1].item() == violated, (where, kind, h_window)
+                _assert_same(sm.cbwd_vh_kernel(plane, h_window), want)

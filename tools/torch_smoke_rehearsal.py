@@ -44,6 +44,12 @@ CUTS = [
      '    floods = [1.0] * (20 + len(sweep_first))\n'),
     ('    bcasts = [e.time_range.elapsed_us() / 1e3 for e in on_card if "broadcast_rows" in e.name]\n',
      '    bcasts = [1.0] * 10\n'),
+    ('    cfwds = [e.time_range.elapsed_us() / 1e3 for e in on_card if "v_pass<true, true>" in e.name]\n',
+     '    cfwds = [1.0] * 10\n'),
+    ('    vcols = [e.time_range.elapsed_us() / 1e3 for e in on_card if "v_pass<true, false>" in e.name]\n',
+     '    vcols = [1.0] * 20\n'),
+    ('    hwins = [e.time_range.elapsed_us() / 1e3 for e in on_card if "hwin_ring" in e.name]\n',
+     '    hwins = [1.0] * 20\n'),
     # The level driver keeps tile state for CUDA planes only; a 256^2 field has
     # too few tiles for its level sweep to skip any.
     ('check(counts["flood_tiles"] == counts["flood"], f"every level-sweep flood call ran with tile state ({label})")',
@@ -123,6 +129,14 @@ def _fake_kernels():
         return coarse_round(c, **kw)
 
     sm.coarse_round_kernel = coarse_round_routed
+    cbwd_vh = sm.cbwd_vh_kernel
+
+    def cbwd_vh_routed(c, h_window=None, **kw):
+        reach = sm._reach(c.shape[1], h_window)
+        _ext.launches[f"cbwd_vh_{sm.legacy_row_plan(*c.shape, 132, reach)['route']}"] += 1
+        return cbwd_vh(c, h_window, **kw)
+
+    sm.cbwd_vh_kernel = cbwd_vh_routed
     _ext.sm_count = lambda dev: 132
     # Shallower windows (32 x 128, 16 x 112 tiles at 8 steps), so that the
     # cut fields have tiles to skip.
