@@ -15,9 +15,11 @@ segmenting and the merging variant, then the level-sweep engine
 (``set_backend("pallas")``, the flood kernel) at 4096^2 and the per-level API
 (``transform_to_list``, ``transform_history``, hooks, progress, plots) at
 1024^2, checks the labels against the packed engine, then the fine scan tail
-and the legacy coarse rounds against their twins, and 16384^2 transforms
-(the fine tail, relax at width 16384) against the exact engine, and times
-the card.
+and the legacy coarse rounds against their twins, 16384^2 transforms
+(the fine tail, relax at width 16384) against the exact engine, then the
+single-device options (relax-plane checkpoints at 4096^2, interrupted and
+resumed; per-level checkpoints on the flood kernel; the random tie-break on
+the card against the CPU; the native engine), and times the card.
 One line per phase; the line before the last is the kernel table as JSON,
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the run exits non-zero; without CUDA it exits non-zero at once.  Imports
@@ -90,6 +92,7 @@ def main() -> int:
     from rustronomy_watershed_tpu_torch.ops.level_driver import run_levels_impl
     from rustronomy_watershed_tpu_torch.ops.pipeline import max_seed_count, watershed_e2e
     from rustronomy_watershed_tpu_torch.ops.seeds import local_extrema_mask, paint_seeds, seed_labels_from_mask
+    from rustronomy_watershed_tpu_torch.parity import native
     from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
@@ -104,6 +107,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _ext.lib()
     print(f"[2 build] nvcc (one process per source) + link + load {time.perf_counter() - t0:.2f} s -> {_ext.library_path()}")
+    t0 = time.perf_counter()
+    native.lib()
+    print(f"[2 build] g++ native engine (parity/oracle.cc) + load {time.perf_counter() - t0:.2f} s -> {native.library_path()}")
 
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -1026,6 +1032,218 @@ def main() -> int:
               f"bound {bound(side * side * 8, 0)[0]:.4f} ms each; gpu={gpu}")
         del lab, y, scratch
 
+    # -- 20: the single-device options: checkpoints, the random tie-break, native
+    from rustronomy_watershed_tpu_torch.ops import merge_curve as mc
+    from rustronomy_watershed_tpu_torch.ops.ckpt_relax import ckpt_transform, plane_fingerprint
+    from rustronomy_watershed_tpu_torch.utils.checkpoint import TransformCheckpointer
+
+    ckpt_root = os.path.join(HERE, "build", "smoke_ckpt")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def builder(variant, device=None, **opts):
+        """``build_<variant>()`` of a builder on ``device`` (the card by
+        default) with the named setters called."""
+        tb = TransformBuilder.default().set_device(device or dev)
+        for setter, args in opts.items():
+            tb = getattr(tb, setter)(*args)
+        return getattr(tb, f"build_{variant}")()
+
+    def timed(fn):
+        """``(result, wall ms)`` of ``fn()``, the card synchronised around it."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def no_twin(counts, what):
+        check(sum(counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, f"no plain twin on {what}")
+
+    def interrupted_by(fn) -> str:
+        """The message of the RuntimeError that ``fn`` is meant to raise (a
+        forced interrupt), or '' when it returned."""
+        try:
+            fn()
+        except RuntimeError as e:
+            return str(e)
+        return ""
+
+    # The packed engine's plane snapshots at 4096^2: uniform segmenting and
+    # NaN-dot merging (the coarse tail).
+    path_kernels = {"segmenting": ("relax",), "merging": ("relax", "coarsen", "coarse_round", "coarse_broadcast")}
+    for variant, label, field_np, other_np in (("segmenting", f"uniform {SIDE}^2", img_np, dots),
+                                               ("merging", f"10% 255-dots {SIDE}^2", dots, img_np)):
+        merging = variant == "merging"
+        seeds_f, seeds_o = ws.find_local_minima(field_np), ws.find_local_minima(other_np)
+        plain_b = builder(variant)
+        _ext.reset_launches()
+        want = plain_b.transform(field_np, seeds_f, device_output=True)
+        calls = _ext.launches["relax"]
+        folder = os.path.join(ckpt_root, variant)
+        ck = builder(variant, set_checkpoint=(folder, 1))
+        _ext.reset_launches()
+        got = ck.transform(field_np, seeds_f, device_output=True)
+        counts = dict(_ext.launches)
+        check(got.device.type == dev.type and torch.equal(got, want), f"checkpointed {variant} {label} == plain transform")
+        check(all(counts[k] > 0 for k in path_kernels[variant]) and counts["relax"] == calls,
+              f"the checkpointed {variant} transform launched {', '.join(path_kernels[variant])}")
+        no_twin(counts, f"the checkpointed {variant} transform")
+        files = os.listdir(folder)
+        check(len(files) == 1 and files[0].startswith("planes-"), f"one plane snapshot file ({variant})")
+        snap_file = os.path.getsize(os.path.join(folder, files[0]))
+        # A forced interrupt after 2 relax calls, then the public builder resumes.
+        shutil.rmtree(folder)
+        img_t, lab0_t = to_dev(field_np), to_dev(paint_seeds(field_np.shape, seeds_f))
+        msg = interrupted_by(lambda: ckpt_transform(
+            img_t, lab0_t, merging=merging, n_labels=len(seeds_f), checkpointer=TransformCheckpointer(folder, 1),
+            device=dev, _interrupt_after_calls=2))
+        check(msg == "forced interrupt after 2 calls", f"the {variant} run stopped after relax call 2")
+        _ext.reset_launches()
+        got = ck.transform(field_np, seeds_f, device_output=True)
+        resumed = dict(_ext.launches)
+        check(torch.equal(got, want), f"{variant} resumed after call 2 == plain transform")
+        check(resumed["relax"] == max(calls - 2, 1), f"the resumed {variant} run started after relax call 2")
+        no_twin(resumed, f"the resumed {variant} transform")
+        # Another field of the same shape: this field's snapshot, also copied
+        # under the other field's name, is not resumed.
+        fp_o = plane_fingerprint(other_np, paint_seeds(other_np.shape, seeds_o), merging=merging, max_water_level=254,
+                                 steps=relax.DEFAULT_STEPS, d_bits=relax._D_BITS)
+        (snap,) = os.listdir(folder)
+        shutil.copy(os.path.join(folder, snap), os.path.join(folder, f"planes-{fp_o}.npz"))
+        _ext.reset_launches()
+        want_o = plain_b.transform(other_np, seeds_o, device_output=True)
+        calls_o = _ext.launches["relax"]
+        _ext.reset_launches()
+        got_o = ck.transform(other_np, seeds_o, device_output=True)
+        check(torch.equal(got_o, want_o) and _ext.launches["relax"] == calls_o,
+              f"a stale snapshot of another field is not resumed ({variant})")
+        # Walls: no checkpoint, every=1 (a snapshot each call) and the
+        # default every=16, fresh directories, in turns.
+        walls = {"none": [], "every=1": [], "every=16": []}
+        for _ in range(3):
+            walls["none"].append(timed(lambda: plain_b.transform(field_np, seeds_f, device_output=True))[1])
+            for every in (1, 16):
+                shutil.rmtree(folder)
+                b_every = builder(variant, set_checkpoint=(folder, every))
+                walls[f"every={every}"].append(timed(lambda: b_every.transform(field_np, seeds_f, device_output=True))[1])
+        check((len(os.listdir(folder)) > 0) == (calls >= 16), f"every=16 snapshots iff the fixed point takes 16 calls")
+        shutil.rmtree(folder)
+        print(f"[20 checkpoint] {label} {variant}: set_checkpoint(every=1) == plain transform ({calls} relax calls, "
+              f"launches {counts}); interrupted after relax call 2 and resumed in {resumed['relax']} calls == plain; "
+              f"a stale snapshot of another field ignored; snapshot file {snap_file} bytes")
+        print(f"[20 time] {label} {variant} transform wall ms (median of 3, in turns): no checkpoint "
+              f"{np.median(walls['none']):.3f}, every=1 {np.median(walls['every=1']):.3f}, every=16 "
+              f"{np.median(walls['every=16']):.3f} ({'no snapshot' if calls < 16 else 'snapshots'}: {calls} calls); "
+              f"runs {walls}; gpu={gpu}")
+
+    # One plane snapshot, the two int32 planes from the card into the file.
+    tmp_ckpt = TransformCheckpointer(os.path.join(ckpt_root, "timing"), 1)
+    key_s, lab_s, _ = relax.relax_packed_planes(img, None, device=dev)
+    for side, planes in ((SIDE, (key_s, lab_s)), (BIG, (torch.zeros((BIG, BIG), dtype=torch.int32, device=dev),) * 2)):
+        ms = [timed(lambda: tmp_ckpt.save_planes(1, *planes, f"timing{side}"))[1] for _ in range(3)]
+        size = os.path.getsize(os.path.join(ckpt_root, "timing", f"planes-timing{side}.npz"))
+        t_load, ms_load = timed(lambda: tmp_ckpt.latest_planes(f"timing{side}"))
+        check(np.array_equal(t_load["lab"], planes[1].cpu().numpy()), f"the {side}^2 snapshot reads back")
+        print(f"[20 time] plane snapshot {side}^2: {2 * side * side * 4} bytes of planes, file {size} bytes; save "
+              f"{np.median(ms):.1f} ms (median of 3: {[round(m, 1) for m in ms]}), read {ms_load:.1f} ms; gpu={gpu}")
+        del t_load
+    del key_s, lab_s, planes
+    shutil.rmtree(ckpt_root)
+
+    # The host loop's per-level snapshots on the flood kernel (backend 'pallas')
+    # at 1024^2: a hook that raises at level 100, then a resumed run.
+    hooked = builder("segmenting", set_backend=("pallas",), set_wlvl_hook=(digest,))
+    _ext.reset_launches()
+    full_hooks, hook_ms = timed(lambda: hooked.transform_with_hook(pimg, pseeds))
+    counts = dict(_ext.launches)
+    check(counts["flood"] > 0, "the hooked level sweep launched the flood kernel")
+    no_twin(counts, "the hooked level sweep")
+    check(full_hooks == builder("segmenting", set_wlvl_hook=(digest,)).transform_with_hook(pimg, pseeds),
+          "hooks on the flood kernel's host loop == the packed engine's replay")
+
+    def boom(ctx):
+        if ctx.water_level == 100:
+            raise RuntimeError("interrupted at level 100")
+        return digest(ctx)
+
+    folder = os.path.join(ckpt_root, "levels")
+    msg = interrupted_by(lambda: builder("segmenting", set_backend=("pallas",), set_checkpoint=(folder, 16),
+                                         set_wlvl_hook=(boom,)).transform_with_hook(pimg, pseeds))
+    check(msg == "interrupted at level 100", "the hook interrupted the level loop at level 100")
+    _ext.reset_launches()
+    resumed_hooks, resume_ms = timed(lambda: builder("segmenting", set_backend=("pallas",), set_checkpoint=(folder, 16),
+                                                     set_wlvl_hook=(digest,)).transform_with_hook(pimg, pseeds))
+    counts = dict(_ext.launches)
+    check(resumed_hooks == full_hooks[97:], "the resumed level loop's hooks == the uninterrupted run's from level 97")
+    check(counts["flood"] > 0, "the resumed level loop launched the flood kernel")
+    no_twin(counts, "the resumed level loop")
+    shutil.rmtree(ckpt_root)
+    print(f"[20 checkpoint] golden_morph_v1 1024^2 segmenting, backend 'pallas', hook, set_checkpoint(every=16): "
+          f"interrupted at level 100, resumed at level 97, its {len(resumed_hooks)} hook views == the uninterrupted "
+          f"run's; launches {counts}; walls {hook_ms:.1f} ms uninterrupted, {resume_ms:.1f} ms resumed; gpu={gpu}")
+
+    # The random tie-break at 1024^2: segmenting labels on the card == on the
+    # CPU for one seed, another seed's differ, the claimed set is the min
+    # rule's; merging labels are the min rule's for every seed (the CPU's
+    # merging level sweep would take minutes here).
+    pois = poisson_u8((1024, 1024))
+    seeds_p = ws.find_local_minima(pois)
+    min_p = ws.transform(pois, seeds_p)
+    _ext.reset_launches()
+    rnd, rnd_ms = timed(lambda: builder("segmenting", set_tie_break=("random", 1)).transform(pois, seeds_p,
+                                                                                             device_output=True))
+    check(rnd.device.type == dev.type, "the random segmenting run computed on the card")
+    check(sum(_ext.launches[k] for k in _ext.KERNELS) == 0, "the random rule runs on no kernel")
+    cpu_rnd, cpu_ms = timed(lambda: builder("segmenting", "cpu", set_tie_break=("random", 1)).transform(pois, seeds_p))
+    check(np.array_equal(rnd.cpu().numpy(), cpu_rnd), "random segmenting: the card == the CPU for one seed")
+    check(not np.array_equal(builder("segmenting", set_tie_break=("random", 2)).transform(pois, seeds_p), cpu_rnd),
+          "random segmenting: another seed gives other labels")
+    check(np.array_equal(cpu_rnd != 0, min_p != 0), "random segmenting: the claimed set == the min rule's")
+    want_m = wm.transform(pois, seeds_p)
+    rnd_m, rnd_m_ms = timed(lambda: builder("merging", set_tie_break=("random", 1)).transform(pois, seeds_p,
+                                                                                             device_output=True))
+    check(rnd_m.device.type == dev.type and np.array_equal(rnd_m.cpu().numpy(), want_m)
+          and np.array_equal(builder("merging", set_tie_break=("random", 2)).transform(pois, seeds_p), want_m),
+          "random merging on the card == the min rule's merging labels, for seeds 1 and 2")
+    print(f"[20 random] Poisson(30) 1024^2 ({len(seeds_p)} seeds): set_tie_break('random', 1) segmenting on the card "
+          f"== on the CPU, {int((cpu_rnd != min_p).sum())} pixels differ from the min rule, seed 2 differs, the "
+          f"claimed set is the min rule's; merging == the min rule for seeds 1 and 2; level sweep segmenting "
+          f"{rnd_ms:.1f} ms on the card, {cpu_ms:.1f} ms on the CPU; merging {rnd_m_ms:.1f} ms on the card; gpu={gpu}")
+    del rnd, rnd_m
+    rnd_g, rnd_g_ms = timed(lambda: builder("segmenting", set_tie_break=("random", 1)).transform(pimg, pseeds,
+                                                                                                  device_output=True))
+    check(torch.equal(rnd_g != 0, torch.from_numpy(ws.transform(pimg, pseeds) != 0).to(dev)),
+          "random golden_morph_v1: the claimed set == the min rule's")
+    print(f"[20 time] golden_morph_v1 1024^2 segmenting, random tie-break, level sweep on the card {rnd_g_ms:.1f} ms; "
+          f"gpu={gpu}")
+    del rnd_g
+
+    # The native engine at 1024^2 against 'auto', and the to_list host tail:
+    # the native pass against its NumPy twin, in turns.
+    for variant in ("segmenting", "merging"):
+        nat, auto_b = builder(variant, set_backend=("native",)), build(variant, "auto")
+        got, nat_ms = timed(lambda: nat.transform(pimg, pseeds))
+        check(np.array_equal(got, auto_b.transform(pimg, pseeds)), f"native {variant} == 'auto'")
+        k1 = len(pseeds) + 1
+        rows_nat, nat_list_ms = timed(lambda: nat.transform_to_list(pimg, pseeds, counts_length=k1))
+        tails = {"native": [], "numpy": []}
+        native_tail = mc.merged_curve_host
+        for _ in range(3):
+            rows_auto, t_ = timed(lambda: auto_b.transform_to_list(pimg, pseeds, counts_length=k1))
+            tails["native"].append(t_)
+            mc.merged_curve_host = mc.merged_curve_plain
+            try:
+                rows_np, t_ = timed(lambda: auto_b.transform_to_list(pimg, pseeds, counts_length=k1))
+            finally:
+                mc.merged_curve_host = native_tail
+            tails["numpy"].append(t_)
+        check(all(a[0] == b[0] == c[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[1], c[1])
+                  for a, b, c in zip(rows_nat, rows_auto, rows_np)), f"native {variant} to_list == 'auto' on both tails")
+        print(f"[20 native] golden_morph_v1 1024^2 {variant}: set_backend('native') == 'auto' (transform, to_list); "
+              f"native transform {nat_ms:.1f} ms, to_list {nat_list_ms:.1f} ms (host); 'auto' to_list on the native "
+              f"tail {np.median(tails['native']):.1f} ms, on the NumPy tail {np.median(tails['numpy']):.1f} ms "
+              f"(median of 3 in turns: {tails}); gpu={gpu}")
+
     # Bytes each function must move at 4096^2 (each input read once, each
     # output written once) and the integer operations it does per cell.
     bounds = {
@@ -1071,9 +1289,9 @@ def main() -> int:
             library_ms=None,  # no single PyTorch call computes any of these functions
         ))
         device = f", device {dev_ms[kname]:.4f} ms (profiler)" if kname in dev_ms else ""
-        print(f"[20 bound] {kname}: {ms:.4f} ms{device} against a bound of {b_ms:.4f} ms ({b_by}); gpu={gpu}")
+        print(f"[21 bound] {kname}: {ms:.4f} ms{device} against a bound of {b_ms:.4f} ms ({b_by}); gpu={gpu}")
     pb_ms, pb_by = big_bounds["pack"]
-    print(f"[20 bound] pack {BIG}^2: {big_ms['pack'][0]:.4f} ms, device {dev_ms['pack 16384']:.4f} ms (profiler) "
+    print(f"[21 bound] pack {BIG}^2: {big_ms['pack'][0]:.4f} ms, device {dev_ms['pack 16384']:.4f} ms (profiler) "
           f"against a bound of {pb_ms:.4f} ms ({pb_by}); plain {big_ms['pack'][1]:.3f} ms; gpu={gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

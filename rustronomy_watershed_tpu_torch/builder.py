@@ -2,11 +2,10 @@
 
 Counterpart of ``rustronomy_watershed_tpu.builder`` (the reference's
 ``TransformBuilder``, src/lib.rs:864-1065): the same
-chainable setters and ``BuildErr`` validation, plus ``set_device``.  Options
-the port does not serve yet (the random tie-break, checkpointing, the mesh
-and the native backend) are accepted by their setters and refused by
-``build_*`` with NotImplementedError naming the ROADMAP item that brings
-them.
+chainable setters and ``BuildErr`` validation, plus ``set_device``.  The
+mesh, which the port does not serve yet, is accepted by its setter and
+refused by ``build_*`` with NotImplementedError naming the ROADMAP item
+that brings it.
 """
 
 from __future__ import annotations
@@ -114,15 +113,24 @@ class TransformBuilder:
     def set_backend(self, backend: str) -> "TransformBuilder":
         """'auto' (the packed relaxation engine: CUDA kernels on the card),
         'relax' (the exact plain engine), 'pallas' (the level sweep on the
-        flood kernel) or 'jnp' (the level sweep on plain flood sweeps); all
-        give the same labels.  'relax_pallas' and 'native' are accepted here
-        and refused at build time."""
+        flood kernel), 'jnp' (the level sweep on plain flood sweeps) or
+        'native' (the C++ engine on the host for transform and
+        transform_to_list, the plain level sweep elsewhere); all give the
+        same labels.  'relax_pallas' is accepted here and refused at build
+        time."""
         if backend not in ("auto", "relax", "relax_pallas", "pallas", "jnp", "native"):
             raise ValueError(f"unknown backend {backend!r}")
         self.backend = backend
         return self
 
     def set_tie_break(self, mode: str, seed: int = 0) -> "TransformBuilder":
+        """Plateau tie-break when a floodable pixel has differently coloured
+        4-neighbours: ``'min'`` (default; the least label wins, every
+        engine) or ``'random'``: a uniformly random coloured 4-neighbour
+        position wins, the reference's rule (src/lib.rs:249-253), drawn
+        from ``seed`` so that a seed gives the same labels on every device.
+        Runs on the plain level sweep; excludes ``set_sweep_impl`` and every
+        backend but 'auto' and 'jnp'."""
         if mode not in ("min", "random"):
             raise ValueError(f"unknown tie-break mode {mode!r}")
         self.tie_break = mode
@@ -130,6 +138,11 @@ class TransformBuilder:
         return self
 
     def set_checkpoint(self, directory, every: int = 16) -> "TransformBuilder":
+        """Snapshot the transform into ``directory`` and resume from the
+        newest snapshot of the same image, seeds and settings: alone on
+        the packed engine, its relax planes every ``every`` relax calls;
+        otherwise the host loop's labels every ``every`` water levels
+        (utils/checkpoint.py)."""
         self.checkpoint_dir = directory
         self.checkpoint_every = every
         return self
@@ -143,10 +156,19 @@ class TransformBuilder:
             raise BuildErr(BuildErr.MAX_TOO_HIGH, self.max_water_level)
         if self.max_water_level <= ALWAYS_FILL:
             raise BuildErr(BuildErr.MAX_TOO_LOW, self.max_water_level)
-        if self.tie_break != "min":
-            raise _not_yet("set_tie_break('random')", 11)
-        if self.checkpoint_dir is not None:
-            raise _not_yet("set_checkpoint", 12)
+        if self.tie_break == "random":
+            if self.sweep_fn is not None:
+                raise ValueError(
+                    "set_tie_break('random') replaces the flood sweep and is "
+                    "mutually exclusive with set_sweep_impl"
+                )
+            if self.backend not in ("auto", "jnp"):
+                raise ValueError(
+                    "set_tie_break('random') runs on the plain level sweep; "
+                    f"backend {self.backend!r} is min-label only"
+                )
+            if self.mesh is not None:
+                raise ValueError("set_tie_break('random') is single-device")
         if self.mesh is not None:
             raise _not_yet("set_mesh", 13)
         if self.backend == "relax_pallas":
@@ -154,8 +176,6 @@ class TransformBuilder:
                 "backend 'relax_pallas' is the packed engine, which the port "
                 "serves as backend 'auto'"
             )
-        if self.backend == "native":
-            raise _not_yet("backend 'native'", 8)
 
     def _kwargs(self):
         return dict(
@@ -169,6 +189,10 @@ class TransformBuilder:
             sweep_fn=self.sweep_fn,
             backend=self.backend,
             device=self.device,
+            checkpoint_dir=self.checkpoint_dir,
+            checkpoint_every=self.checkpoint_every,
+            tie_break=self.tie_break,
+            tie_break_seed=self.tie_break_seed,
         )
 
     def build_merging(self) -> MergingWatershed:

@@ -46,10 +46,11 @@ def planes_to_jax_layout(v, key, lab, tile: int, steps: int, *, unclaimed: int =
 
 
 def builder_from_jax(tb, device="cuda"):
-    """Port TransformBuilder with the JAX builder's options; raises
-    NotImplementedError for options the port does not serve yet (the port
-    builder's own validation names the ROADMAP item) and for a sweep
-    function, which the JAX builder holds as a JAX function."""
+    """Port TransformBuilder with the JAX builder's options (the tie-break
+    and its seed, the checkpoint settings and every backend included);
+    raises NotImplementedError for the mesh, which the port does not serve
+    yet (the port builder's own validation names the ROADMAP item), and for
+    a sweep function, which the JAX builder holds as a JAX function."""
     from .builder import TransformBuilder
 
     if tb.sweep_fn is not None:

@@ -7,12 +7,17 @@ Counterpart of ``rustronomy_watershed_tpu.models.base``: the reference's
 Four engines (``ops/level_driver.py``), chosen by the builder's backend:
 ``'auto'`` the packed relaxation engine (the CUDA kernels on the card),
 ``'relax'`` the exact relaxation engine, ``'pallas'`` the level sweep on the
-flood kernel and ``'jnp'`` the level sweep on plain ``flood_sweep``.  Per
-level, the relaxation engines serve ``transform_to_list``,
-``transform_history`` and pure observers (hook, plots) from their compact
-planes (ops/merge_curve.py); progress, debug and a custom sweep step the
-levels from the host, as the reference does.  The native engine, the random
-tie-break, checkpointing and the mesh are refused by the builder.
+flood kernel and ``'jnp'`` the level sweep on plain ``flood_sweep``; and
+``'native'``, the C++ engine (parity/native.py) for ``transform`` and
+``transform_to_list``, the plain level sweep elsewhere.  Per level, the
+relaxation engines serve ``transform_to_list``, ``transform_history`` and
+pure observers (hook, plots) from their compact planes (ops/merge_curve.py);
+progress, debug, a custom sweep, the random tie-break and per-level
+checkpoints step the levels from the host, as the reference does.  The
+random tie-break (``set_tie_break('random', seed)``) runs the plain level
+sweep with ``flood_sweep_random`` on a uniform plane drawn from the seed.
+Checkpointing alone on the packed engine snapshots its relax planes
+(ops/ckpt_relax.py).  The builder refuses the mesh.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import dataclasses
 import os
 import time
 import warnings
+from functools import partial
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -28,17 +34,21 @@ import torch
 
 from .. import _ext
 from ..constants import ALWAYS_FILL, NEVER_FILL, NORMAL_MAX
-from ..ops.flood import flood_candidates, paint
-from ..ops.level_driver import level_step, level_step_counted, run_levels_impl
+from ..ops.flood import flood_candidates, flood_candidates_random, flood_sweep_random, paint
+from ..ops.level_driver import _flood_step, level_step, level_step_counted, run_levels_impl
+from ..ops.ckpt_relax import ckpt_transform
 from ..ops.merge import merge_touching
 from ..ops.merge_curve import relax_history, relax_merging_sizes
 from ..ops.preprocess import pre_process
 from ..ops.seeds import local_extrema_mask, paint_seeds, seed_array
+from ..parity.native import native_transform
+from ..utils.checkpoint import TransformCheckpointer, fingerprint
 from ..utils.perf import PerfReport
 from ..utils.progress import ProgressBar
 
-# Public backend name -> the port's engine (ops/level_driver.py).
-_BACKENDS = {"auto": "packed", "relax": "relax", "pallas": "flood", "jnp": "sweep"}
+# Public backend name -> the port's engine (ops/level_driver.py).  'native'
+# runs the C++ engine where it serves the call, else the plain level sweep.
+_BACKENDS = {"auto": "packed", "relax": "relax", "pallas": "flood", "jnp": "sweep", "native": "sweep"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +165,10 @@ class _WatershedBase(WatershedUtils):
         sweep_fn=None,
         backend: str = "auto",
         device="cuda",
+        checkpoint_dir=None,
+        checkpoint_every: int = 16,
+        tie_break: str = "min",
+        tie_break_seed: int = 0,
     ):
         if backend not in _BACKENDS:
             raise ValueError(f"backend {backend!r} not served ({', '.join(_BACKENDS)})")
@@ -168,13 +182,42 @@ class _WatershedBase(WatershedUtils):
         self.sweep_fn = sweep_fn
         self.backend = backend
         self.device = device
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
+        self.tie_break = tie_break
+        self.tie_break_seed = tie_break_seed
 
     def _resolved_backend(self) -> str:
         """The engine behind the backend.  ``'auto'`` is the packed engine
-        for every collect: merging curves and histories rebuild on the host
-        from its compact planes (ops/merge_curve.py), so no per-level
-        statistic needs the level sweep."""
+        for every collect (merging curves and histories rebuild on the host
+        from its compact planes, ops/merge_curve.py), and the plain level
+        sweep under the random tie-break, which the relaxation engines and
+        the flood kernel cannot run (they are min-label by construction).
+        ``'native'`` resolves to the plain level sweep: the C++ engine
+        serves transform and transform_to_list before any engine is
+        chosen."""
+        if self.backend == "auto" and self.tie_break == "random":
+            return "sweep"
         return _BACKENDS[self.backend]
+
+    def _uniform_plane(self, shape, index=None):
+        """The random tie-break's float32 uniform [0, 1) plane, drawn on the
+        CPU (the same plane on every device) from the seed, or for image
+        ``index`` of a batch from ``SeedSequence([seed, index])``."""
+        seed = self.tie_break_seed
+        if index is not None:
+            seed = int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0])
+        gen = torch.Generator().manual_seed(seed)
+        u = torch.rand(tuple(shape), generator=gen, dtype=torch.float32)
+        return u.to(_ext.resolve_device(self.device))
+
+    def _effective_sweep_fn(self, shape, index=None):
+        """The level sweep's flood sweep: the caller's ``sweep_fn``, or
+        under the random tie-break ``flood_sweep_random`` on the uniform
+        plane (reference src/lib.rs:249-253)."""
+        if self.tie_break != "random":
+            return self.sweep_fn
+        return partial(flood_sweep_random, u=self._uniform_plane(shape, index))
 
     def _clone_with_hook(self, hook):
         return type(self)(
@@ -188,6 +231,10 @@ class _WatershedBase(WatershedUtils):
             sweep_fn=self.sweep_fn,
             backend=self.backend,
             device=self.device,
+            checkpoint_dir=self.checkpoint_dir,
+            checkpoint_every=self.checkpoint_every,
+            tie_break=self.tie_break,
+            tie_break_seed=self.tie_break_seed,
         )
 
     def _prepare(self, input_img, seeds):
@@ -209,29 +256,64 @@ class _WatershedBase(WatershedUtils):
             or self.plot_path is not None
             or self.progress
             or self.debug
+            or self.checkpoint_dir is not None
         )
 
-    def _run(self, img, labels0, **kw):
-        """run_levels_impl on the configured engine; a d-field saturation
-        of the packed engine (a >= 2^23-pixel equal-level plateau) warns
-        and re-runs on the exact engine."""
-        kw.update(
-            max_water_level=self.max_water_level, merging=self._merging,
-            sweep_fn=self.sweep_fn, device=img.device,
+    def _ckpt_fast_path(self) -> bool:
+        """Checkpointing alone on the packed engine (so under the min rule):
+        relax-plane snapshots (ops/ckpt_relax.py) instead of the host loop.
+        The JAX package takes this path only on its Pallas engine, so on
+        the CPU its ``'auto'`` ('relax' there) steps the levels instead;
+        the labels are equal either way."""
+        return (
+            self.checkpoint_dir is not None
+            and self.wlvl_hook is None
+            and self.plot_path is None
+            and not self.progress
+            and not self.debug
+            and self.sweep_fn is None
+            and self._resolved_backend() == "packed"
         )
-        labels, starved = run_levels_impl(
-            img, labels0, backend=self._resolved_backend(), with_flags=True, **kw
-        )
+
+    def _run(self, img, labels0, *, sweep_fn=None, checkpointer=None, **kw):
+        """run_levels_impl on the configured engine (ckpt_transform with a
+        ``checkpointer``); a d-field saturation of the packed engine (a
+        >= 2^23-pixel equal-level plateau) warns and re-runs on the exact
+        engine.  ``sweep_fn`` defaults to the effective sweep of the
+        image's shape."""
+        kw.update(max_water_level=self.max_water_level, merging=self._merging, device=img.device)
+        if checkpointer is None:
+            if sweep_fn is None:
+                sweep_fn = self._effective_sweep_fn(img.shape)
+            labels, starved = run_levels_impl(
+                img, labels0, backend=self._resolved_backend(), with_flags=True, sweep_fn=sweep_fn, **kw
+            )
+        else:
+            labels, starved = ckpt_transform(img, labels0, checkpointer=checkpointer, **kw)
         if starved:
             _warn_saturation()
             labels = run_levels_impl(img, labels0, backend="relax", **kw)
         return labels
 
+    def _native(self, input_img, seeds, **kw):
+        return native_transform(
+            np.asarray(input_img, dtype=np.uint8), seeds, self.max_water_level,
+            merging=self._merging, edge_correction=self.edge_correction, **kw,
+        )
+
     def transform(self, input_img, seeds, device_output: bool = False):
         """Final label image (host numpy int32, or the device tensor with
-        ``device_output=True``).  With a hook, plots, progress or debug the
-        levels are observed on the way and the last level's view is the
-        result."""
+        ``device_output=True``).  With a hook, plots, progress, debug or
+        per-level checkpoints the levels are observed on the way and the
+        last level's view is the result."""
+        if self.backend == "native" and not self._needs_host_loop():
+            out = self._native(input_img, seeds).astype(np.int32)
+            return torch.from_numpy(out).to(_ext.resolve_device(self.device)) if device_output else out
+        if self._ckpt_fast_path():
+            img, labels0 = self._prepare(input_img, seeds)
+            ckpt = TransformCheckpointer(self.checkpoint_dir, self.checkpoint_every)
+            labels = self._run(img, labels0, n_labels=len(seeds), checkpointer=ckpt)
+            return labels if device_output else labels.cpu().numpy()
         if self._needs_host_loop():
             clone = self._clone_with_hook(
                 lambda ctx: ctx.colours.copy() if ctx.water_level == ctx.max_water_level else None
@@ -261,6 +343,13 @@ class _WatershedBase(WatershedUtils):
         reference's ``n_pixels + 1`` rows (src/lib.rs:630, SURVEY.md Q10);
         pass e.g. ``len(seeds) + 1`` for compact rows.  Rows of a result
         over 64 MB are views of one block unless ``copy=True``."""
+        if self.backend == "native" and not self._needs_host_loop():
+            _, sizes = self._native(input_img, seeds, with_sizes=True)
+            if counts_length is None:
+                h, w = np.shape(input_img)
+                pad = 2 if self.edge_correction else 0
+                counts_length = (h + pad) * (w + pad) + 1
+            return _expand_rows(sizes, counts_length, self.max_water_level, copy)
         if self._needs_host_loop():
             # The reference's transform_to_list is clone_with_hook(
             # find_lake_sizes) (src/lib.rs:1551-1561).
@@ -289,7 +378,7 @@ class _WatershedBase(WatershedUtils):
                 _, sizes, _ = relax_merging_sizes(img, labels0, backend="relax", **kw)
         else:
             _, sizes = run_levels_impl(
-                img, labels0, collect="sizes", backend=backend, sweep_fn=self.sweep_fn,
+                img, labels0, collect="sizes", backend=backend, sweep_fn=self._effective_sweep_fn(img.shape),
                 device=img.device, **kw,
             )
             sizes = sizes.cpu().numpy()
@@ -329,7 +418,7 @@ class _WatershedBase(WatershedUtils):
                 snaps, _ = relax_history(img, labels0, backend="relax", device=img.device, **kw)
             return snaps
         _, hist = run_levels_impl(
-            img, labels0, collect="history", backend=backend, sweep_fn=self.sweep_fn,
+            img, labels0, collect="history", backend=backend, sweep_fn=self._effective_sweep_fn(img.shape),
             device=img.device, **kw,
         )
         hist = hist.cpu().numpy()
@@ -338,8 +427,11 @@ class _WatershedBase(WatershedUtils):
     def transform_batch(self, input_imgs, seeds_list, device_output: bool = False):
         """Transform a ``(b, h, w)`` stack of same-shaped cutouts (BASELINE
         config 5: 64 x 1024² cutouts), one seed list per image; returns
-        ``(b, h, w)`` labels like ``transform``.  Hooks, plots, progress and
-        debug do not apply.
+        ``(b, h, w)`` labels like ``transform``.  Hooks, plots, progress,
+        debug and checkpoints do not apply.  Under the random tie-break each
+        image draws its own uniform plane (``SeedSequence([seed, i])``), so
+        image i's labels do not depend on the other images or the batch
+        size.
 
         On the relaxation engines the images run as ONE vertically stacked
         plane with their borders forced to NEVER_FILL: border cells are never
@@ -358,7 +450,12 @@ class _WatershedBase(WatershedUtils):
             raise ValueError("one seed list per image required")
         backend = self._resolved_backend()
         if backend in ("flood", "sweep"):
-            out = torch.stack([self._run(*self._prepare(a, s), n_labels=len(s)) for a, s in zip(imgs, seeds_list)])
+            runs = []
+            for i, (a, s) in enumerate(zip(imgs, seeds_list)):
+                img, labels0 = self._prepare(a, s)
+                sweep_fn = self._effective_sweep_fn(img.shape, index=i)
+                runs.append(self._run(img, labels0, n_labels=len(s), sweep_fn=sweep_fn))
+            out = torch.stack(runs)
             return out if device_output else out.cpu().numpy()
         if self.edge_correction:
             imgs = np.pad(imgs, ((0, 0), (1, 1), (1, 1)), constant_values=ALWAYS_FILL)
@@ -391,11 +488,14 @@ class _WatershedBase(WatershedUtils):
         """Pure observers (hook, plots) replay snapshots rebuilt from the
         relaxation engines' compact planes: one device pass instead of 255
         host-stepped levels.  Progress (a tick per flood sweep), debug
-        (split-phase timers) and a custom sweep interact with the stepping
-        itself and run the real loop."""
+        (split-phase timers), per-level checkpoints (the saves are the
+        recovery points) and a custom sweep interact with the stepping
+        itself and run the real loop, as do the random tie-break and the
+        native backend, which resolve to the level sweep."""
         return (
             not self.debug
             and not self.progress
+            and self.checkpoint_dir is None
             and self.sweep_fn is None
             and self._resolved_backend() in ("packed", "relax")
         )
@@ -432,9 +532,14 @@ class _WatershedBase(WatershedUtils):
 
     def _host_stepped(self, input_img, seeds) -> list:
         """The reference's per-level loop stepped from the host
-        (src/lib.rs:1379-1521): plain ``level_step`` per level (with the
-        caller's sweep), ``level_step_counted`` for progress ticks, or the
-        split candidate / paint / merge phases with timers for debug."""
+        (src/lib.rs:1379-1521): per level the flood fixed point on the
+        flood kernel (backend ``'pallas'``) or ``level_step`` with the
+        effective sweep, ``level_step_counted`` for progress ticks, or the
+        split candidate / paint / merge phases with timers for debug.  With
+        a checkpoint directory the labels are saved every
+        ``checkpoint_every`` levels, and a run resumes from the newest
+        snapshot of its fingerprint at the level after it (a snapshot of
+        the last level re-runs that level, so its hooks still fire)."""
         if self._fast_observer_ok():
             return self._replayed_observers(input_img, seeds)
         img, labels = self._prepare(input_img, seeds)
@@ -442,14 +547,37 @@ class _WatershedBase(WatershedUtils):
         n_labels = len(seeds)
         seed_colours = self._seed_colours(seeds)
         img_np = img.cpu().numpy()
-        step = level_step_counted if self.progress else level_step
+        ckpt, start_lvl = None, 0
+        if self.checkpoint_dir is not None:
+            ckpt = TransformCheckpointer(self.checkpoint_dir, self.checkpoint_every)
+            fp = fingerprint(
+                img, labels, kind="levels", merging=self._merging, max_water_level=self.max_water_level,
+                tie_break=self.tie_break, tie_break_seed=self.tie_break_seed if self.tie_break == "random" else 0,
+            )
+            latest = ckpt.latest(fp)
+            if latest is not None and latest[1].shape == tuple(labels.shape):
+                start_lvl = min(latest[0] + 1, self.max_water_level)
+                labels = torch.from_numpy(latest[1]).to(dev)
+        sweep_fn = self._effective_sweep_fn(img.shape)
+        if self.debug:
+            cand_fn = flood_candidates if self.tie_break != "random" else partial(
+                flood_candidates_random, u=self._uniform_plane(img.shape)
+            )
+        elif self.progress:
+            def step(lab, lvl):
+                return level_step_counted(img, lab, lvl, merging=self._merging, n_labels=n_labels, sweep_fn=sweep_fn)
+        elif self._resolved_backend() == "flood" and sweep_fn is None:
+            step, labels = _flood_step(img, labels, merging=self._merging, n_labels=n_labels, steps=None)
+        else:
+            def step(lab, lvl):
+                return level_step(img, lab, lvl, merging=self._merging, n_labels=n_labels, sweep_fn=sweep_fn)
         bar = ProgressBar(self.max_water_level) if self.progress else None
         if self.debug:
             # The reference prints the initial lake count (src/lib.rs:1371-1372).
             print(f"starting with {len(seeds) + 1} lakes")
 
         results = []
-        for lvl in range(self.max_water_level + 1):
+        for lvl in range(start_lvl, self.max_water_level + 1):
             perf = PerfReport() if self.debug else None
             t_level = time.perf_counter()
             if self.debug:
@@ -462,7 +590,7 @@ class _WatershedBase(WatershedUtils):
                         bar.tick()
                     perf.loops += 1
                     t0 = time.perf_counter()
-                    cand, nmin, any_p = flood_candidates(img, labels, lvl)
+                    cand, nmin, any_p = cand_fn(img, labels, lvl)
                     any_p = bool(any_p)
                     perf.big_iter_ms.append(int((time.perf_counter() - t0) * 1e3))
                     if not any_p:
@@ -479,15 +607,15 @@ class _WatershedBase(WatershedUtils):
                     perf.merge_ms = int((time.perf_counter() - t0) * 1e3)
             elif self.progress:
                 # A tick per colouring iteration (src/lib.rs:1395-1398).
-                labels, loops = step(
-                    img, labels, lvl, merging=self._merging, n_labels=n_labels, sweep_fn=self.sweep_fn
-                )
+                labels, loops = step(labels, lvl)
                 for _ in range(loops):
                     bar.tick()
             else:
-                labels = step(img, labels, lvl, merging=self._merging, n_labels=n_labels, sweep_fn=self.sweep_fn)
+                labels = step(labels, lvl)
 
             labels_np = labels.cpu().numpy()
+            if ckpt is not None:
+                ckpt.maybe_save(lvl, labels_np, fp)
             if self.plot_path is not None:
                 self._plot_level(labels_np, lvl)
             if bar is not None:

@@ -13,6 +13,12 @@ with the minimum coloured 4-neighbour label.  Every decision of a sweep
 reads the labels from its start (Jacobi), so one sweep advances the
 wavefront by one 4-connected ring, the reference's plateau-claiming order
 (SURVEY.md Q3).  Plain PyTorch on any device.
+
+``flood_sweep_random`` is the opt-in stochastic tie-break
+(``set_tie_break('random', seed)``): the reference's own plateau rule
+(src/lib.rs:249-253), a uniformly random coloured 4-neighbour *position*,
+drawn from one float32 uniform plane per transform (a pixel is painted
+once, so it consumes its draw once).
 """
 
 from __future__ import annotations
@@ -66,3 +72,32 @@ def flood_fixed_point(img, labels, lvl, sweep_fn=None):
         painted |= changed
         if not changed:
             return labels, painted
+
+
+def flood_candidates_random(img, labels, lvl, u, mask=None):
+    """flood_candidates under the random tie-break: ``(cand, choice,
+    any_cand)`` with ``choice`` the coloured 4-neighbour of rank
+    ``j = min(int32(u * float32(n_valid)), n_valid - 1)`` among the coloured
+    ones in the order up, down, left, right (the JAX ``roll4`` order; the
+    min guards the ``u * n == n`` rounding corner).  ``u`` is a float32
+    uniform [0, 1) plane; ``choice`` matters only where ``cand``."""
+    if mask is None:
+        mask = interior_mask(labels.shape, labels.device)
+    neigh = shift4(labels, UNCOLOURED)
+    valid = [(n != UNCOLOURED).to(torch.int32) for n in neigh]
+    n_valid = valid[0] + valid[1] + valid[2] + valid[3]
+    j = torch.minimum((u * n_valid.to(torch.float32)).to(torch.int32), n_valid - 1)
+    choice = torch.zeros_like(labels)
+    rank = torch.zeros_like(n_valid)
+    for v, n in zip(valid, neigh):
+        choice = torch.where((v > 0) & (rank == j), n, choice)
+        rank = rank + v
+    cand = (labels == UNCOLOURED) & (img <= lvl) & (n_valid > 0) & mask
+    return cand, choice, cand.any()
+
+
+def flood_sweep_random(img, labels, lvl, *, u, mask=None):
+    """One Jacobi flood sweep under the random tie-break; a ``sweep_fn``
+    once ``u`` is bound (functools.partial)."""
+    cand, choice, _ = flood_candidates_random(img, labels, lvl, u, mask)
+    return paint(labels, cand, choice)

@@ -150,12 +150,12 @@ def _shortcut(shape, device, batch, batch_mins, gmin):
     return out
 
 
-def _merge_full_depth(img, labels0, *, n_labels, steps, device, batch, batch_mins):
+def _merge_full_depth(img, labels0, *, n_labels, steps, device, batch, batch_mins, checkpoint):
     """Merging at max_water_level >= 254 on the packed engine: relax with
     statistics, then the shortcut or the component-min tail.  Returns
     ``(labels, starved)``."""
     _, lab, starved, (n_uncl, any_border, gmin) = relax_packed_planes(
-        img, labels0, steps=steps, device=device, stats=True
+        img, labels0, steps=steps, device=device, stats=True, checkpoint=checkpoint
     )
     h, w = lab.shape
     if batch is not None:
@@ -177,13 +177,13 @@ def _merge_full_depth(img, labels0, *, n_labels, steps, device, batch, batch_min
     return component_min_labels(lab, max_label=n_labels)[0], starved
 
 
-def _relax_collect(img, labels0, *, backend, max_water_level, n_labels, collect, steps, dev):
+def _relax_collect(img, labels0, *, backend, max_water_level, n_labels, collect, steps, dev, checkpoint=None):
     """The segmenting transform on a relaxation engine, with the per-level
     statistics rebuilt from its claim levels: ``(labels, starved)`` or
     ``((labels, stack), starved)``."""
     if backend == "packed":
         labels, key, starved = relax_transform_packed(
-            img, labels0, max_water_level=max_water_level, steps=steps, device=dev
+            img, labels0, max_water_level=max_water_level, steps=steps, device=dev, checkpoint=checkpoint
         )
         claim_levels = key >> _key_consts(None)[0]
     else:
@@ -220,6 +220,7 @@ def run_levels_impl(
     batch: tuple | None = None,
     batch_mins=None,
     device="cuda",
+    checkpoint=None,
 ):
     """Run the full transform; returns the ``(h, w)`` int32 label tensor, or
     ``(labels, stack)`` with ``collect='sizes'`` (``(levels, n_labels + 1)``
@@ -239,7 +240,11 @@ def run_levels_impl(
     shortcut; the minima are each image's least surviving seed label.
     ``starved`` is True iff the packed engine's d field saturated (the
     caller should re-run on ``'relax'``); always False for the others.
+    ``checkpoint`` (``'packed'``, ``collect='none'``; ops/ckpt_relax.py)
+    snapshots the relax planes and resumes from them.
     """
+    if checkpoint is not None and (backend != "packed" or collect != "none"):
+        raise ValueError("checkpoint needs backend='packed' and collect='none'")
     if merging and n_labels is None:
         raise ValueError("merging needs n_labels, the largest label")
     if labels0 is None and backend != "packed":
@@ -258,12 +263,12 @@ def run_levels_impl(
         if merging and max_water_level >= 254:
             res, starved = _merge_full_depth(
                 img, labels0, n_labels=n_labels, steps=steps, device=dev,
-                batch=batch, batch_mins=batch_mins,
+                batch=batch, batch_mins=batch_mins, checkpoint=checkpoint,
             )
         else:
             res, starved = _relax_collect(
                 img, labels0, backend="packed", max_water_level=max_water_level,
-                n_labels=n_labels, collect=collect, steps=steps, dev=dev,
+                n_labels=n_labels, collect=collect, steps=steps, dev=dev, checkpoint=checkpoint,
             )
             if merging:
                 _ext.launches["merge_tail"] += 1

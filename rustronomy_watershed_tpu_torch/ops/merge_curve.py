@@ -18,7 +18,9 @@ curves come from the relaxation engine's ``(label, claim level)`` planes:
 
 The device runs the relaxation, the edge extraction and its deduplication;
 the int32 label plane and the u8 claim-level plane then move to the host in
-one copy, and NumPy rebuilds the per-level tables (the host Kruskal tail).
+one copy, and the host rebuilds the per-level tables (the Kruskal tail): the
+curves in one native C++ pass (parity/native.py; the NumPy pair
+``merged_curve_plain`` is its twin for the tests), the histories in NumPy.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import _ext
+from ..parity.native import native_merged_curve
 from .priority import relax_transform
 from .relax import _key_consts, relax_transform_packed
 from .scan_merge import component_min_labels, component_min_labels_plain
@@ -193,9 +196,19 @@ def merged_curve_host(
     labels_np, lv8_np, n_labels: int, max_water_level: int, lo, hi, act,
     out_width: int | None = None,
 ) -> np.ndarray:
-    """``(levels, out_width or K+1)`` merged sizes from the compact planes
-    (NumPy).  Columns beyond K+1 are zeros; representatives at or above
+    """``(levels, out_width or K+1)`` merged sizes from the compact planes:
+    the native C++ pass (parity/native.py), as the JAX package's tail runs.
+    Columns beyond K+1 are zeros; representatives at or above
     ``out_width`` are cut."""
+    return native_merged_curve(labels_np, lv8_np, n_labels, max_water_level, lo, hi, act, out_width=out_width)
+
+
+def merged_curve_plain(
+    labels_np, lv8_np, n_labels: int, max_water_level: int, lo, hi, act,
+    out_width: int | None = None,
+) -> np.ndarray:
+    """The NumPy twin of merged_curve_host (host_cumulative_counts, then
+    merged_sizes_host), which the tests hold the native pass against."""
     cum = host_cumulative_counts(labels_np, lv8_np, n_labels, max_water_level)
     sizes = merged_sizes_host(cum, np.asarray(lo), np.asarray(hi), np.asarray(act))
     if out_width is None or out_width == sizes.shape[1]:

@@ -279,10 +279,11 @@ def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, s
             return k2, l2, bool(f[SAT])
 
 
-def relax_packed_planes(img, labels0, *, steps=None, d_bits=None, device="cuda", stats=False):
+def relax_packed_planes(img, labels0, *, steps=None, d_bits=None, device="cuda", stats=False, checkpoint=None):
     """Pack (seeds from ``labels0``, or from the image when it is None) and
     relax to the fixed point.  Returns what relax_fixed_point returns, with
-    ``(h, w)`` planes on ``device``."""
+    ``(h, w)`` planes on ``device``.  ``checkpoint`` (ops/ckpt_relax.py)
+    may replace the packed planes with a snapshot's and sees every call."""
     steps = DEFAULT_STEPS if steps is None else int(steps)
     d_bits, _, _ = _key_consts(d_bits)
     dev = _ext.resolve_device(device)
@@ -291,11 +292,15 @@ def relax_packed_planes(img, labels0, *, steps=None, d_bits=None, device="cuda",
     else:
         img = torch.as_tensor(img).to(dev)
         v, key, lab = pack_domain(img, torch.as_tensor(labels0).to(dev), d_bits=d_bits)
-    return relax_fixed_point(v, key, lab, steps=steps, d_bits=d_bits, stats=stats)
+    on_call = None
+    if checkpoint is not None:
+        key, lab = checkpoint.resume(key, lab)
+        on_call = checkpoint.on_call
+    return relax_fixed_point(v, key, lab, steps=steps, d_bits=d_bits, stats=stats, on_call=on_call)
 
 
 def relax_transform_packed(
-    img, labels0, *, max_water_level: int = 254, steps=None, device="cuda"
+    img, labels0, *, max_water_level: int = 254, steps=None, device="cuda", checkpoint=None
 ):
     """Full segmenting transform on the packed engine — the counterpart of
     ``pallas_relax.relax_transform_pallas``.  Bit-identical labels to
@@ -308,7 +313,7 @@ def relax_transform_packed(
     """
     d_bits, _, _ = _key_consts(None)
     key, lab, starved = relax_packed_planes(
-        img, labels0, steps=steps, d_bits=d_bits, device=device
+        img, labels0, steps=steps, d_bits=d_bits, device=device, checkpoint=checkpoint
     )
     if max_water_level >= 254:
         # The claimed-ness gate keeps unclaimed cells at label 0, so the

@@ -79,5 +79,11 @@ def test_builder_from_jax():
     )
     with pytest.raises(NotImplementedError, match="JAX sweep function"):
         builder_from_jax(JaxBuilder.default().set_sweep_impl(lambda *a: None), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        builder_from_jax(JaxBuilder.default().set_tie_break("random", 1), device="cpu")
+    # The random tie-break is served: the option and its seed carry over,
+    # and the merging labels (which no draw changes) equal the JAX builder's.
+    jb = JaxBuilder.default().set_tie_break("random", 1)
+    tb = builder_from_jax(jb, device="cpu")
+    assert (tb.tie_break, tb.tie_break_seed) == ("random", 1)
+    np.testing.assert_array_equal(
+        tb.build_merging().transform(img, seeds), np.asarray(jb.build_merging().transform(img, seeds))
+    )

@@ -120,18 +120,20 @@ def _plots(builder, folder):
         (lambda b, d: b.enable_debug(), 11),
         (lambda b, d: b.set_sweep_impl(_sweep_for(b)), 11),
         (lambda b, d: b.set_tie_break("random", 3), 11),
-        (lambda b, d: b.set_checkpoint("ckpt"), 12),
+        (lambda b, d: b.set_checkpoint(d / type(b).__module__.split(".")[0]), 12),
         (lambda b, d: b.set_mesh(object()), 13),
         (lambda b, d: b.set_backend("jnp"), 11),
         (lambda b, d: b.set_backend("native"), 8),
     ],
 )
 def test_unserved_options_raise_at_build(configure, item, tmp_path):
-    """The random tie-break, checkpointing, the mesh and the native backend
-    raise at build time naming their ROADMAP item; every other option of
-    this list is served and gives the JAX package's labels."""
+    """The mesh raises at build time naming its ROADMAP item; every other
+    option of this list is served and gives the JAX package's labels.  The
+    random tie-break draws its plane from another generator than the JAX
+    package's, so there the merging labels and the segmenting claimed set,
+    which no draw changes, are held equal."""
     tb = configure(_cpu_builder().set_max_water_lvl(60), tmp_path)
-    if item != 11 or tb.tie_break != "min":
+    if item == 13:
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
             tb.build_segmenting()
         return
@@ -139,9 +141,11 @@ def test_unserved_options_raise_at_build(configure, item, tmp_path):
     img = np.random.default_rng(8).integers(0, 70, size=(18, 21)).astype(np.uint8)
     seeds = _cpu_builder().build_segmenting().find_local_minima(img) + [(0, 3)]
     for build in ("build_segmenting", "build_merging"):
-        np.testing.assert_array_equal(
-            getattr(tb, build)().transform(img, seeds), np.asarray(getattr(jb, build)().transform(img, seeds))
-        )
+        got = getattr(tb, build)().transform(img, seeds)
+        want = np.asarray(getattr(jb, build)().transform(img, seeds))
+        if tb.tie_break == "random" and build == "build_segmenting":
+            got, want = got != 0, want != 0
+        np.testing.assert_array_equal(got, want)
 
 
 def test_unserved_entries_raise():

@@ -16,7 +16,8 @@ from rustronomy_watershed_tpu_torch import _ext
 from rustronomy_watershed_tpu_torch.ops import flood_block, pack, priority, relax
 from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
 from rustronomy_watershed_tpu_torch.ops.pipeline import watershed_e2e
-from rustronomy_watershed_tpu_torch.ops.seeds import local_extrema_mask, seed_labels_from_mask
+from rustronomy_watershed_tpu_torch.ops.seeds import local_extrema_mask, paint_seeds, seed_labels_from_mask
+from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
 from torch_fields import plateau, seed_lattice, serpentine
 
 pytestmark = pytest.mark.cuda
@@ -678,3 +679,67 @@ def test_cbwd_vh_violation_across_band_and_step_boundaries(cuda, shape):
                 want = sm.cbwd_vh_plain(plane, h_window)
                 assert want[1].item() == violated, (where, kind, h_window)
                 _assert_same(sm.cbwd_vh_kernel(plane, h_window), want)
+
+
+# -- the single-device options: checkpoints, the random tie-break, native ----
+
+
+def _api_field(shape=(300, 420), seed=21):
+    img = _field(shape, 254, seed)
+    seeds = TransformBuilder.default().set_device("cpu").build_segmenting().find_local_minima(img) + [(0, 5)]
+    return img, seeds
+
+
+@pytest.mark.parametrize("variant", ["segmenting", "merging"])
+def test_fast_path_checkpoint_on_card(cuda, tmp_path, variant):
+    """Relax-plane snapshots on the card: an interrupted run resumed, and a
+    stale snapshot of another field of the same shape ignored, both equal
+    to the transform without checkpoints; every relax call on the kernel."""
+    from rustronomy_watershed_tpu_torch.ops.ckpt_relax import ckpt_transform
+    from rustronomy_watershed_tpu_torch.utils.checkpoint import TransformCheckpointer
+
+    img, seeds = _api_field()
+    merging = variant == "merging"
+    plain = getattr(TransformBuilder.default().set_device("cuda"), f"build_{variant}")()
+    want = plain.transform(img, seeds, device_output=True)
+    lab0 = torch.from_numpy(paint_seeds(img.shape, seeds)).to(cuda)
+    kw = dict(merging=merging, n_labels=len(seeds), device=cuda, steps=2)
+    _ext.reset_launches()
+    with pytest.raises(RuntimeError, match="forced interrupt after 2 calls"):
+        ckpt_transform(torch.from_numpy(img).to(cuda), lab0, checkpointer=TransformCheckpointer(tmp_path, every=1),
+                       _interrupt_after_calls=2, **kw)
+    got, starved = ckpt_transform(torch.from_numpy(img).to(cuda), lab0,
+                                  checkpointer=TransformCheckpointer(tmp_path, every=1), **kw)
+    assert not starved and got.is_cuda and torch.equal(got, want)
+    assert _ext.launches["relax"] > 2 and _ext.launches["relax_plain"] == 0
+    other = img[::-1].copy()
+    ws = getattr(TransformBuilder.default().set_device("cuda").set_checkpoint(tmp_path, every=1), f"build_{variant}")()
+    np.testing.assert_array_equal(ws.transform(other, seeds), plain.transform(other, seeds))
+    np.testing.assert_array_equal(ws.transform(img, seeds), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("variant", ["segmenting", "merging"])
+def test_random_tie_break_card_equals_cpu(cuda, variant):
+    img, seeds = _api_field((200, 240))
+
+    def run(device, seed):
+        tb = TransformBuilder.default().set_device(device).set_tie_break("random", seed)
+        return getattr(tb, f"build_{variant}")().transform(img, seeds, device_output=True)
+
+    _ext.reset_launches()
+    on_card = run("cuda", 4)
+    assert on_card.is_cuda
+    cpu = run("cpu", 4)
+    assert torch.equal(on_card.cpu(), cpu)
+    assert variant == "merging" or not torch.equal(run("cuda", 5), on_card)
+
+
+@pytest.mark.parametrize("variant", ["segmenting", "merging"])
+def test_native_equals_auto_on_card(cuda, variant):
+    img, seeds = _api_field()
+    auto = getattr(TransformBuilder.default().set_device("cuda"), f"build_{variant}")()
+    native = getattr(TransformBuilder.default().set_device("cuda").set_backend("native"), f"build_{variant}")()
+    np.testing.assert_array_equal(native.transform(img, seeds), auto.transform(img, seeds))
+    a = auto.transform_to_list(img, seeds, counts_length=len(seeds) + 1)
+    n = native.transform_to_list(img, seeds, counts_length=len(seeds) + 1)
+    assert all(x[0] == y[0] and np.array_equal(x[1], y[1]) for x, y in zip(a, n))

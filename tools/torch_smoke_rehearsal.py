@@ -11,7 +11,10 @@ paths, arguments, shapes and control flow in the script before a chip call;
 it says nothing about the kernels themselves or about times (the printed
 times are the CPU's).  The size cuts are textual replacements in the
 script's source: each must match, so a change to the script that moves one
-fails here loudly.
+fails here loudly.  Phase 20 (the single-device options) runs on the cut
+fields too: checkpoints at 256^2 and a 320^2 plane snapshot, the flood
+kernel's host loop on the cut golden_morph_v1, the random tie-break on a
+512^2 Poisson field on both "devices", the native engine on the host.
 """
 
 from __future__ import annotations
