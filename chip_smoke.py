@@ -19,7 +19,11 @@ and the legacy coarse rounds against their twins, 16384^2 transforms
 (the fine tail, relax at width 16384) against the exact engine, then the
 single-device options (relax-plane checkpoints at 4096^2, interrupted and
 resumed; per-level checkpoints on the flood kernel; the random tie-break on
-the card against the CPU; the native engine), and times the card.
+the card against the CPU; the native engine), then the mesh: the relax
+kernel's centre rectangle against its twin, ``set_mesh`` on a one-rank NCCL
+mesh and on a 2 x 2 gloo mesh of four spawned processes sharing the card
+(4096^2, both variants, every rank's labels against the single-device
+labels), and times the card.
 One line per phase; the line before the last is the kernel table as JSON,
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the run exits non-zero; without CUDA it exits non-zero at once.  Imports
@@ -37,6 +41,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 import numpy as np
@@ -78,6 +83,232 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+MESH_DEADLINE = 300.0  # seconds the ranks of the 2 x 2 mesh (phase 23) may take
+
+
+def max_err(xs, ys) -> int:
+    """The largest absolute difference between paired tensors."""
+    return max(int((x.long() - y.long()).abs().max()) if x.numel() else 0 for x, y in zip(xs, ys))
+
+
+def held_mesh_calls(log: dict, keep_first: bool = False):
+    """An ``on_call`` for the mesh driver (``parallel.tiled._tiled_run``):
+    holds each relax call, planes and flags, against the twin on the same
+    inputs and rectangle, and adds to ``log``'s ``calls`` and ``err``.
+    With ``keep_first``, ``log["first"]`` keeps a copy of the first call's
+    inputs and rectangle (for timing the kernel at the path's shape)."""
+    from rustronomy_watershed_tpu_torch.ops import relax
+
+    def on_call(v, src, dst, flags, ctr):
+        steps = ctr[0]  # k sweeps a round on planes with a k-px halo
+        if keep_first and "first" not in log:
+            log["first"] = (v.clone(), src[0].clone(), src[1].clone(), ctr)
+        want = relax.relax_block_plain(v, *src, steps, ctr=ctr)
+        log["err"] = max(log.get("err", 0), max_err((*dst, flags), want))
+        log["calls"] = log.get("calls", 0) + 1
+
+    return on_call
+
+
+def mesh_rank(rank: int, device: str, cases) -> dict:
+    """One rank of phase 23's 2 x 2 gloo mesh, a spawned process
+    (``tests/torch_mesh.py::run_ranks``), computing its tile on ``device``.
+    Per case ``(variant, image, seeds)``: every relax call of the mesh
+    driver held against the twin, the labels' sha256, the rounds and tile
+    calls, the API transform's wall and its launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from rustronomy_watershed_tpu_torch import _ext
+    from rustronomy_watershed_tpu_torch.ops.seeds import paint_seeds
+    from rustronomy_watershed_tpu_torch.parallel.tiled import _tiled_run
+    from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
+    from torch_mesh import mesh_of
+
+    mesh = mesh_of((2, 2))
+    dev = torch.device(device)
+    res = {"backends": [dist.get_backend(mesh.get_group(d)) for d in ("y", "x")]}
+    for variant, field, seeds in cases:
+        held = {}
+        _, stats, _ = _tiled_run(torch.from_numpy(field).to(dev), torch.from_numpy(paint_seeds(field.shape, seeds)).to(dev),
+                                 mesh, n_labels=len(seeds), max_water_level=254, merging=variant == "merging",
+                                 on_call=held_mesh_calls(held))
+        ws = getattr(TransformBuilder().set_device(dev).set_mesh(mesh), f"build_{variant}")()
+        _ext.reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels = ws.transform(field, seeds)
+        wall = (time.perf_counter() - t0) * 1e3
+        res[variant] = dict(sha=hashlib.sha256(labels.tobytes()).hexdigest(), rounds=stats[0], runs=stats[1],
+                            wall_ms=wall, launches=dict(_ext.launches), held=held)
+    return res
+
+
+def mesh_kernel_path(counts: dict) -> bool:
+    """Whether a mesh transform's launch counts show the relax kernel, each
+    launch with its centre rectangle, and no plain twin."""
+    from rustronomy_watershed_tpu_torch import _ext
+
+    plain = sum(counts[f"{k}_plain"] for k in _ext.KERNELS)
+    return counts["relax"] > 0 and counts["relax_ctr"] == counts["relax"] and plain == 0
+
+
+def mesh_phases(c) -> dict:
+    """Phases 21-23: the relax kernel's centre rectangle against its twin,
+    then the port's mesh on the card (a one-rank NCCL mesh, then a 2 x 2
+    gloo mesh of four processes on the one card).  ``c`` holds what they
+    take from the earlier phases: the device and its line, helpers, the
+    segmenting builder ``ws``, phase 4's packed 4096^2 planes and the
+    4096^2 uniform and 10% NaN-dot fields.  Returns the relax_ctr row's
+    numbers: its launches on the 1 x 1 mesh's segmenting transform, its
+    error over every relax call of the mesh driver in phases 22 and 23
+    (against the twin on the same inputs), and its times and bound on the
+    1 x 1 mesh's first call (the padded 4112^2 planes, its rectangle)."""
+    import torch
+
+    from rustronomy_watershed_tpu_torch import _ext
+    from rustronomy_watershed_tpu_torch.ops import pack, relax
+    from rustronomy_watershed_tpu_torch.ops.seeds import paint_seeds
+    from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
+
+    dev, gpu, to_dev, median_ms, timed = c.dev, c.gpu, c.to_dev, c.median_ms, c.timed
+    builder, ws, v, key0, lab0 = c.builder, c.ws, c.v, c.key0, c.lab0
+    img_np, dots, s = c.img_np, c.dots, relax.DEFAULT_STEPS
+    # -- 21: the relax kernel's centre rectangle against its twin -------------
+    ctr_err = 0
+    odd_c = np.random.default_rng(21).integers(0, 254, (1023, 1031)).astype(np.uint8)
+    for label, (vv, kk, ll) in ((f"uniform {SIDE}^2", (v, key0, lab0)),
+                                ("uniform 1023x1031", pack.pack_kernel(to_dev(odd_c))[:3])):
+        h, w = kk.shape
+        mid_c = relax.relax_block_kernel(vv, kk, ll, 5)[:2]
+        rects = {"the whole plane": (0, h, 0, w), "inner (8, h-8, 8, w-8)": (8, h - 8, 8, w - 8),
+                 "off-centre (37, h-50, 13, w-101)": (37, h - 50, 13, w - 101)}
+        for rname, rect in rects.items():
+            for state in ((kk, ll), mid_c):
+                got = relax.relax_block_kernel(vv, *state, s, ctr=rect)
+                want = relax.relax_block_plain(vv, *state, s, ctr=rect)
+                torch.cuda.synchronize()
+                ctr_err = max(ctr_err, max_err(got, want))
+            skips = []
+
+            def held_ctr(src, dst, flags, skipped, vv=vv, rect=rect, skips=skips):
+                nonlocal ctr_err
+                ctr_err = max(ctr_err, max_err((*dst, flags), relax.relax_block_plain(vv, *src, s, ctr=rect)))
+                skips.append(skipped)
+
+            relax.relax_fixed_point(vv, kk.clone(), ll.clone(), ctr=rect, on_call=held_ctr)
+            check(ctr_err == 0, f"relax kernel with the rectangle {rname} == twin on {label}")
+            check(len(skips) >= 2 and skips[0] == 0, f"the {label} fixed point ran both ping-pong directions")
+            print(f"[21 relax ctr] {label}, rectangle {rname} {rect}: fresh and mid calls and all {len(skips)} calls of "
+                  f"the skipping fixed point bit-equal to the twin (planes and flags); tiles skipped per call {skips}")
+    full_rect, inner_rect = (0, SIDE, 0, SIDE), (8, SIDE - 8, 8, SIDE - 8)
+    ctr_times = {"none": [], "whole plane": [], "inner": []}
+    for _ in range(2):  # in turns
+        for name_, rect in (("none", None), ("whole plane", full_rect), ("inner", inner_rect)):
+            ctr_times[name_].append(median_ms(lambda: relax.relax_block_kernel(v, key0, lab0, s, ctr=rect), 20))
+    print(f"[21 time] relax {SIDE}^2 one call of {s} sweeps (median of 20, two turns): no rectangle "
+          f"{ctr_times['none']} ms, the whole plane as rectangle {ctr_times['whole plane']} ms, inner rectangle "
+          f"{ctr_times['inner']} ms; gpu={gpu}")
+
+    # -- 22: the mesh on the card: a one-rank NCCL mesh -------------------------
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from rustronomy_watershed_tpu_torch.ops.seeds import seed_array
+    from rustronomy_watershed_tpu_torch.parallel.tiled import _tiled_run
+
+    mesh_root = os.path.join(HERE, "build", "smoke_mesh")
+    shutil.rmtree(mesh_root, ignore_errors=True)
+    os.makedirs(mesh_root)
+    mesh_cases = [("segmenting", f"uniform {SIDE}^2", img_np), ("merging", f"10% 255-dots {SIDE}^2", dots)]
+    mesh_seeds = {variant: seed_array(ws.find_local_minima(field)) for variant, _, field in mesh_cases}
+    single_labels, mesh_err = {}, 0
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(mesh_root, "nccl"), 1), rank=0, world_size=1,
+                            timeout=timedelta(seconds=120))
+    try:
+        mesh1 = DeviceMesh("cuda", [[0]], mesh_dim_names=("y", "x"))
+        check(dist.get_backend(mesh1.get_group("y")) == "nccl", "the one-rank mesh runs on NCCL")
+        for variant, label, field in mesh_cases:
+            sd = mesh_seeds[variant]
+            single = builder(variant)
+            want = single.transform(field, sd, device_output=True)
+            single_labels[variant] = want.cpu().numpy()
+            meshed = getattr(TransformBuilder().set_device(dev).set_mesh(mesh1), f"build_{variant}")()
+            _ext.reset_launches()
+            got = meshed.transform(field, sd, device_output=True)
+            torch.cuda.synchronize()
+            counts = dict(_ext.launches)
+            check(got.device == want.device and torch.equal(got, want), f"1x1 NCCL mesh {variant} {label} == single device")
+            check(mesh_kernel_path(counts), f"the 1x1 mesh ({variant}) launched the relax kernel with its centre "
+                  "rectangle and no twin")
+            if variant == "segmenting":
+                mesh_counts = counts
+            held = {}
+            run_labels, (rounds, runs), _ = _tiled_run(
+                to_dev(field), to_dev(paint_seeds(field.shape, sd)), mesh1, n_labels=len(sd), max_water_level=254,
+                merging=variant == "merging", on_call=held_mesh_calls(held, keep_first=variant == "segmenting"))
+            check(torch.equal(run_labels, want), f"1x1 mesh driver {variant} == single device")
+            check(held["calls"] == runs and held["err"] == 0,
+                  f"every relax call of the 1x1 mesh driver ({variant}) == twin on the same inputs and rectangle")
+            mesh_err = max(mesh_err, held["err"])
+            if variant == "segmenting":
+                first_call = held["first"]
+            walls = {"single device": [], "1x1 mesh": []}
+            for _ in range(3):
+                walls["single device"].append(timed(lambda: single.transform(field, sd, device_output=True))[1])
+                walls["1x1 mesh"].append(timed(lambda: meshed.transform(field, sd, device_output=True))[1])
+            print(f"[22 mesh 1x1] {label} {variant}: set_mesh(one-rank NCCL DeviceMesh) transform == the single-device "
+                  f"transform; {rounds} rounds, {runs} tile calls, each relax call bit-equal to the twin (planes and "
+                  f"flags); relax launches {counts['relax']} (all with the centre rectangle); API wall ms (median of "
+                  f"3 in turns) single device {np.median(walls['single device']):.1f}, 1x1 mesh "
+                  f"{np.median(walls['1x1 mesh']):.1f}; runs {walls}; gpu={gpu}")
+    finally:
+        dist.destroy_process_group()
+
+    # -- 23: a 2x2 gloo mesh of four processes on the one card ------------------
+    from torch_mesh import run_ranks  # tests/, on sys.path since main()
+
+    _ext.lib()  # built here once; the ranks load it
+    cases = [(variant, field, mesh_seeds[variant]) for variant, _, field in mesh_cases]
+    t0 = time.perf_counter()
+    ranks_out = run_ranks(mesh_rank, 4, mesh_root, str(dev), cases, deadline=MESH_DEADLINE)
+    spawn_s = time.perf_counter() - t0
+    for variant, label, _ in mesh_cases:
+        want_sha = hashlib.sha256(single_labels[variant].tobytes()).hexdigest()
+        per = [r[variant] for r in ranks_out]
+        check(all(p["sha"] == want_sha for p in per), f"every rank's 2x2 mesh {variant} labels == single device")
+        check(all(mesh_kernel_path(p["launches"]) for p in per),
+              f"every rank launched the relax kernel with its centre rectangle and no twin ({variant})")
+        check(all(r["backends"] == ["gloo", "gloo"] for r in ranks_out), "the 2x2 mesh's groups are gloo")
+        check(all(p["held"]["calls"] > 0 and p["held"]["err"] == 0 for p in per),
+              f"every relax call of every rank's mesh driver ({variant}) == twin on the same inputs and rectangle")
+        mesh_err = max([mesh_err] + [p["held"]["err"] for p in per])
+        print(f"[23 mesh 2x2] {label} {variant}: four gloo ranks (processes) computing {SIDE // 2}^2 tiles on one card, halo "
+              f"strips, reductions and the all-gather through gloo and host memory: every rank's labels == the "
+              f"single-device labels; {per[0]['rounds']} rounds, {per[0]['runs']} tile calls, each of the ranks' relax "
+              f"calls {[p['held']['calls'] for p in per]} bit-equal to the twin; relax launches per rank "
+              f"{[p['launches']['relax'] for p in per]}; API wall ms per rank {[round(p['wall_ms'], 1) for p in per]}; "
+              f"gpu={gpu}")
+    print(f"[23 mesh 2x2] spawn, import, both variants twice and exit: {spawn_s:.1f} s")
+    shutil.rmtree(mesh_root)
+
+    # The relax_ctr row's times: the 1x1 mesh's first call, at its shape.
+    v1, k1, l1, rect1 = first_call
+    ctr_ms = float(np.median([median_ms(lambda: relax.relax_block_kernel(v1, k1, l1, rect1[0], ctr=rect1), 20)
+                              for _ in range(2)]))
+    ctr_plain_ms = median_ms(lambda: relax.relax_block_plain(v1, k1, l1, rect1[0], ctr=rect1), 5)
+    px1 = k1.numel()
+    ctr_bound = bound(px1 * (1 + 8 + 8), px1 * rect1[0] * 25)  # as the relax row's, at this plane
+    print(f"[23 time] relax on the 1x1 mesh's first call ({tuple(k1.shape)} planes, rectangle {rect1}, {rect1[0]} "
+          f"sweeps): kernel {ctr_ms:.4f} ms (median of 20, two turns), plain {ctr_plain_ms:.3f} ms, bound "
+          f"{ctr_bound[0]:.4f} ms ({ctr_bound[1]}); gpu={gpu}")
+    return dict(launches=mesh_counts["relax_ctr"], err=mesh_err, ms=ctr_ms, plain_ms=ctr_plain_ms, bound=ctr_bound)
+
+
 def main() -> int:
     import torch
 
@@ -113,9 +344,6 @@ def main() -> int:
 
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    def max_err(xs, ys) -> int:
-        return max(int((x.long() - y.long()).abs().max()) if x.numel() else 0 for x, y in zip(xs, ys))
 
     # -- 3: pack kernel against its twin -------------------------------------
     rng = np.random.default_rng(0)
@@ -1244,11 +1472,17 @@ def main() -> int:
               f"tail {np.median(tails['native']):.1f} ms, on the NumPy tail {np.median(tails['numpy']):.1f} ms "
               f"(median of 3 in turns: {tails}); gpu={gpu}")
 
+    mesh = mesh_phases(types.SimpleNamespace(
+        dev=dev, gpu=gpu, to_dev=to_dev, median_ms=median_ms, timed=timed,
+        builder=builder, ws=ws, v=v, key0=key0, lab0=lab0, img_np=img_np, dots=dots,
+    ))
+
     # Bytes each function must move at 4096^2 (each input read once, each
     # output written once) and the integer operations it does per cell.
     bounds = {
         "pack": bound(px * (1 + 1 + 4 + 4), px * 20),  # 8 compares + numbering per pixel
         "relax": relax_bound,
+        "relax_ctr": mesh["bound"],  # at the 1x1 mesh's padded planes
         "coarsen": bound(px * 4 + cells * 4, cells * 40),
         "coarse_round": round_bound,
         "coarse_broadcast": bound(px * 4 + cells * 4 + px * 4, px * 6),
@@ -1278,6 +1512,8 @@ def main() -> int:
          legacy_counts["cfwd_v"], legacy_err["cfwd_v"], *pass_ms["cfwd_v"]),
         ("cbwd_vh", "csrc/scan_round.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:898",
          legacy_counts["cbwd_vh"], legacy_err["cbwd_vh"], *pass_ms["cbwd_vh"]),
+        ("relax_ctr", "csrc/relax.cu", "rustronomy_watershed_tpu/ops/pallas_relax.py:268",
+         mesh["launches"], mesh["err"], mesh["ms"], mesh["plain_ms"]),
     ]
     kernels = []
     for kname, src, replaces, n, err, ms, plain_ms in rows:
@@ -1289,9 +1525,9 @@ def main() -> int:
             library_ms=None,  # no single PyTorch call computes any of these functions
         ))
         device = f", device {dev_ms[kname]:.4f} ms (profiler)" if kname in dev_ms else ""
-        print(f"[21 bound] {kname}: {ms:.4f} ms{device} against a bound of {b_ms:.4f} ms ({b_by}); gpu={gpu}")
+        print(f"[24 bound] {kname}: {ms:.4f} ms{device} against a bound of {b_ms:.4f} ms ({b_by}); gpu={gpu}")
     pb_ms, pb_by = big_bounds["pack"]
-    print(f"[21 bound] pack {BIG}^2: {big_ms['pack'][0]:.4f} ms, device {dev_ms['pack 16384']:.4f} ms (profiler) "
+    print(f"[24 bound] pack {BIG}^2: {big_ms['pack'][0]:.4f} ms, device {dev_ms['pack 16384']:.4f} ms (profiler) "
           f"against a bound of {pb_ms:.4f} ms ({pb_by}); plain {big_ms['pack'][1]:.3f} ms; gpu={gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

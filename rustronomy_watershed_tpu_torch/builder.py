@@ -3,9 +3,9 @@
 Counterpart of ``rustronomy_watershed_tpu.builder`` (the reference's
 ``TransformBuilder``, src/lib.rs:864-1065): the same
 chainable setters and ``BuildErr`` validation, plus ``set_device``.  The
-mesh, which the port does not serve yet, is accepted by its setter and
-refused by ``build_*`` with NotImplementedError naming the ROADMAP item
-that brings it.
+mesh serves ``transform``; what it does not serve yet (per-level
+statistics, the host-stepped loop, checkpoints, a batch dim) is refused with
+NotImplementedError naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -148,6 +148,29 @@ class TransformBuilder:
         return self
 
     def set_mesh(self, mesh) -> "TransformBuilder":
+        """Tile ``transform`` over a ``torch.distributed`` DeviceMesh with
+        the dims ``("y", "x")`` (parallel/tiled.py).
+
+        SPMD: JAX runs one controller over every device, torch.distributed
+        one process per rank.  So every rank builds the same builder and
+        calls ``transform(img, seeds)`` with the full image; each rank pads
+        and slices its own tile (row-major rank order over the mesh) and
+        relaxes it on ``set_device``'s device, exchanging halos with its
+        neighbour ranks; every rank gets the full labels back by an
+        all-gather.  The labels equal the single-device labels on every
+        rank, and no rank is a driver.  The mesh supplies the ranks and the
+        process groups (gloo or NCCL; gloo strips of tiles on the card go
+        through host memory); the builder's device says where the tiles
+        compute.
+
+        As in the JAX package, the mesh runs its tiled relax engine whatever
+        the backend and sweep function, ``backend('native')`` ignores the
+        mesh, and ``transform_batch`` ignores a mesh without a ``"batch"``
+        dim.  Not
+        served yet (NotImplementedError, ROADMAP queue 1 item 13 (b)):
+        ``transform_to_list``, ``transform_history``, hooks, plots,
+        progress, debug, checkpoints and a ``"batch"`` dim.  The random
+        tie-break is single-device (ValueError)."""
         self.mesh = mesh
         return self
 
@@ -170,7 +193,15 @@ class TransformBuilder:
             if self.mesh is not None:
                 raise ValueError("set_tie_break('random') is single-device")
         if self.mesh is not None:
-            raise _not_yet("set_mesh", 13)
+            names = tuple(getattr(self.mesh, "mesh_dim_names", None) or ())
+            if "batch" in names:
+                raise _not_yet("set_mesh with a 'batch' dim", "13 (b)")
+            if names != ("y", "x"):
+                raise ValueError(f"set_mesh takes a torch.distributed DeviceMesh with the dims ('y', 'x'), got {names}")
+            if self.wlvl_hook is not None or self.plot_path is not None or self.progress or self.debug:
+                raise _not_yet("set_mesh with hooks, plots, progress or debug (the host-stepped level loop)", "13 (b)")
+            if self.checkpoint_dir is not None:
+                raise _not_yet("set_mesh with set_checkpoint", "13 (b)")
         if self.backend == "relax_pallas":
             raise NotImplementedError(
                 "backend 'relax_pallas' is the packed engine, which the port "
@@ -193,6 +224,7 @@ class TransformBuilder:
             checkpoint_every=self.checkpoint_every,
             tie_break=self.tie_break,
             tie_break_seed=self.tie_break_seed,
+            mesh=self.mesh,
         )
 
     def build_merging(self) -> MergingWatershed:

@@ -48,11 +48,14 @@ def planes_to_jax_layout(v, key, lab, tile: int, steps: int, *, unclaimed: int =
 def builder_from_jax(tb, device="cuda"):
     """Port TransformBuilder with the JAX builder's options (the tie-break
     and its seed, the checkpoint settings and every backend included);
-    raises NotImplementedError for the mesh, which the port does not serve
-    yet (the port builder's own validation names the ROADMAP item), and for
+    raises NotImplementedError for a mesh, whose translation from a JAX
+    ``Mesh`` into a torch.distributed DeviceMesh is not ported yet, and for
     a sweep function, which the JAX builder holds as a JAX function."""
     from .builder import TransformBuilder
+    from .models.base import _not_yet
 
+    if tb.mesh is not None:
+        raise _not_yet("translating a JAX Mesh into a DeviceMesh (builder_from_jax)", "13 (b)")
     if tb.sweep_fn is not None:
         raise NotImplementedError(
             "the JAX builder's set_sweep_impl holds a JAX sweep function, which "
@@ -66,7 +69,7 @@ def builder_from_jax(tb, device="cuda"):
     # port does not serve.
     for name in (
         "wlvl_hook", "plot_path", "plot_colour_map", "progress", "debug",
-        "backend", "mesh", "checkpoint_dir", "checkpoint_every",
+        "backend", "checkpoint_dir", "checkpoint_every",
         "tie_break", "tie_break_seed",
     ):
         setattr(out, name, getattr(tb, name))

@@ -11,8 +11,20 @@
 // every width, so the stripe geometry (`resolve_stripe_config`,
 // RWT_RELAX_STRIPES) was TPU tuning and is not carried over; the Jacobi
 // ping-pong and centre-only writes are the striped kernel's design.  Not
-// carried over either: the fused-scan epilogue, `ctr_cols` and the in-place
-// aliased band DMAs.  Index arithmetic is in size_t.
+// carried over either: the fused-scan epilogue and the in-place aliased band
+// DMAs.  Index arithmetic is in size_t.
+//
+// The centre rectangle `[ctr_y0, ctr_y1) x [ctr_x0, ctr_x1)`, in plane
+// coordinates, is the counterpart of `_relax_kernel`'s `ctr_cols=(lo, hi)`
+// (pallas_relax.py:268, :387-390, :495-497): only its cells set
+// changed_any, changed_last and sat.  A mesh tile's plane carries k halo rows
+// and columns that evolve within a call (the TPU band kernel froze its halo
+// rows, so a column range was enough there) and are rewritten by the next
+// halo refresh; counting them would hold the round loop open forever.  The
+// per-tile change flag (`chg`) still counts every centre cell of its kernel
+// tile, halo cells included, since the quiet-tile rule is about the whole
+// tile.  The whole plane (the default) compiles without the rectangle's
+// masks (`kRect`).
 //
 // Update of one cell (key = L << d_bits | d, see ops/relax.py):
 //   best  = min(key, max(ext(min4 kq), vcand)),  ext(a) = min(a+1, a|d_mask)
@@ -51,11 +63,13 @@
 //     flags (`chg_prev`, from relax_fixed_point), a block whose tile and 8
 //     neighbour tiles changed no centre cell in that call returns at once
 //     (its output is already in the destination plane, see ops/relax.py);
-//   * the flags: changed_any / changed_last by one atomicOr per block; the
-//     saturation bit and the statistics as per-tile partials (written when
-//     a tile runs, kept when it is skipped), reduced over all tiles by a
-//     second one-block launch.  `stats` is a template parameter: the
-//     segmenting instantiation holds no statistics code.
+//   * the flags: block votes (`__syncthreads_or`; nvcc 12.9 miscompiled a
+//     warp vote folded into a shared atomicOr in csrc/flood.cu), then
+//     changed_any / changed_last by one atomicOr per block; the saturation
+//     bit and the statistics as per-tile partials (written when a tile
+//     runs, kept when it is skipped), reduced over all tiles by a second
+//     one-block launch.  `stats` is a template parameter: the segmenting
+//     instantiation holds no statistics code.
 // The strip depth and the warps per block come from the launch plan in
 // ops/relax.py (relax_plan): strips of 8 rows in 16 warps, a 128 x 128
 // window, 112 x 112 centre tiles at 8 steps.  On an H100 strips of 4 rows
@@ -78,16 +92,16 @@ constexpr int kMaxThreads = 512;   // 16 warps: a 128 x 128 window, 128 register
 
 // Shared-memory rows of one block: [sweep parity][warp][top key, top label,
 // bottom key, bottom label][lane], one int4 (four columns) each.
-template <bool kStats>
+template <bool kStats, bool kRect>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
              const int32_t* __restrict__ lab_in, int32_t* __restrict__ key_out,
              int32_t* __restrict__ lab_out, int32_t* __restrict__ flags,
              const int32_t* __restrict__ chg_prev, int32_t* __restrict__ chg,
              int32_t* __restrict__ part, int h, int w, int steps, int d_bits,
-             int tile_y, int tile_x, int vec) {
+             int tile_y, int tile_x, int4 rect, int vec) {
   extern __shared__ int4 xrow[];
-  __shared__ int s_red[3];
+  __shared__ int s_red[2];  // with stats: unclaimed interior cells, least claimed interior label
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int S = steps, WY = nw * kR;
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
@@ -107,10 +121,9 @@ relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
       return;
     }
   }
-  if (threadIdx.x == 0) {
+  if (kStats && threadIdx.x == 0) {
     s_red[0] = 0;
-    s_red[1] = 0;
-    s_red[2] = kInf;
+    s_red[1] = kInf;
   }
 
   // The strip: plane rows y0 .. y0+kR-1, columns x0 .. x0+3.
@@ -151,9 +164,19 @@ relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
   }
 
   int ctr_col[kCols];  // -1 where the column lies in the centre
+  // With kRect (rect = (y0, y1, x0, x1)): bit j of rect_cols, column j lies
+  // in the centre and in the rectangle; bit r of rect_rows, row r does.
+  unsigned rect_cols = 0, rect_rows = 0;
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) ctr_col[j] = (xw + j >= S && xw + j < kWinX - S) ? -1 : 0;
-  bool any_c = false, last_c = false, reg_c = true;
+  for (int j = 0; j < kCols; ++j) {
+    ctr_col[j] = (xw + j >= S && xw + j < kWinX - S) ? -1 : 0;
+    if (kRect && ctr_col[j] && x0 + j >= rect.z && x0 + j < rect.w) rect_cols |= 1u << j;
+  }
+  if (kRect) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) rect_rows |= (y0 + r >= rect.x && y0 + r < rect.y) ? 1u << r : 0u;
+  }
+  bool tile_c = false, any_c = false, last_c = false, reg_c = true;
   for (int s = 1; s <= S; ++s) {
     int4* xb = xrow + ((s & 1) * nw + wid) * 4 * 32 + lane;
     xb[0] = make_int4(k[0][0], k[0][1], k[0][2], k[0][3]);
@@ -179,7 +202,7 @@ relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
     // Rows of this sweep's exact region count every column: a superset of
     // the region, so a quiet vote still proves it quiet (the early exit
     // stays exact); the centre, which sets the flags, is counted exactly.
-    int reg = 0, ctr = 0;
+    int reg = 0, ctr = 0, rct = 0;
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
       int dk[kCols], dl[kCols];  // the old row below
@@ -211,7 +234,7 @@ relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
         kr3 = unclaimed;
         lr3 = 0;
       }
-      int ed = 0, cd = 0;
+      int ed = 0, cd = 0, rd = 0;
       // In place, left to right: the old values of the cell go to the row
       // above's slot (for row r + 1) and to the left neighbour's (for j + 1).
 #pragma unroll
@@ -229,6 +252,7 @@ relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
         const int d = (best ^ k0) | (nl ^ l0);
         ed |= d;
         cd |= d & ctr_col[j];
+        if constexpr (kRect) rd |= ((rect_cols >> j) & 1u) ? d : 0;
         pk[j] = okl = k0;
         pl[j] = oll = l0;
         k[r][j] = best;
@@ -236,10 +260,14 @@ relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
       }
       const int yy = wid * kR + r;
       if (yy >= s && yy < WY - s) reg |= ed;
-      if (yy >= S && yy < WY - S) ctr |= cd;
+      if (yy >= S && yy < WY - S) {
+        ctr |= cd;
+        if (kRect && ((rect_rows >> r) & 1u)) rct |= rd;
+      }
     }
     reg_c = reg != 0;
-    last_c = ctr != 0;
+    if constexpr (kRect) tile_c |= ctr != 0;
+    last_c = (kRect ? rct : ctr) != 0;
     any_c |= last_c;
   }
 
@@ -266,7 +294,7 @@ relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
         key_out[g] = kk;
         lab_out[g] = ll;
       }
-      sat |= kk < unclaimed && ll == 0;
+      if (!kRect || ((rect_rows >> r) & (rect_cols >> j) & 1u)) sat |= kk < unclaimed && ll == 0;
       if constexpr (kStats) {
         if (gy >= 1 && gy <= h - 2 && gx >= 1 && gx <= w - 2) {
           if (ll == 0) ++uncl;
@@ -277,27 +305,29 @@ relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
       }
     }
   }
-  const int bits = (__any_sync(kFull, any_c) ? 1 : 0) | (__any_sync(kFull, last_c) ? 2 : 0) |
-                   (__any_sync(kFull, sat) ? 4 : 0) | (__any_sync(kFull, border) ? 8 : 0);
+  // Without a rectangle the tile's centre is the flags' centre.
+  const bool blk_any = __syncthreads_or(any_c) != 0;
+  const bool blk_tile = kRect ? __syncthreads_or(tile_c) != 0 : blk_any;
+  const bool blk_last = __syncthreads_or(last_c) != 0;
+  const bool blk_sat = __syncthreads_or(sat) != 0;
+  bool blk_border = false;
   if constexpr (kStats) {
+    blk_border = __syncthreads_or(border) != 0;
     uncl = __reduce_add_sync(kFull, uncl);
     gmin = __reduce_min_sync(kFull, gmin);
-  }
-  if (lane == 0) {
-    if (bits) atomicOr(&s_red[0], bits);
-    if constexpr (kStats) {
-      if (uncl) atomicAdd(&s_red[1], uncl);
-      atomicMin(&s_red[2], gmin);
+    if (lane == 0) {
+      if (uncl) atomicAdd(&s_red[0], uncl);
+      atomicMin(&s_red[1], gmin);
     }
+    __syncthreads();
   }
-  __syncthreads();
   if (threadIdx.x == 0) {
-    const int b = s_red[0];
-    if (b & 1) atomicOr(flags + 0, 1);
-    if (b & 2) atomicOr(flags + 1, 1);
-    if (chg != nullptr) chg[tile] = b & 1;
+    if (blk_any) atomicOr(flags + 0, 1);
+    if (blk_last) atomicOr(flags + 1, 1);
+    if (chg != nullptr) chg[tile] = blk_tile ? 1 : 0;
     int4* p = reinterpret_cast<int4*>(part) + tile;
-    *p = make_int4((b >> 2) & 1, s_red[1], (b >> 3) & 1, s_red[2]);
+    if constexpr (kStats) *p = make_int4(blk_sat, s_red[0], blk_border, s_red[1]);
+    else *p = make_int4(blk_sat, 0, 0, kInf);
   }
 }
 
@@ -347,18 +377,18 @@ relax_reduce(const int32_t* __restrict__ chg, const int4* __restrict__ part, int
   }
 }
 
-template <bool kStats>
+template <bool kStats, bool kRect>
 cudaError_t launch(const dim3& grid, int threads, size_t smem, cudaStream_t st, const void* v, const void* key_in,
                    const void* lab_in, void* key_out, void* lab_out, void* flags, const void* chg_prev, void* chg,
-                   void* part, int h, int w, int steps, int d_bits, int tile_y, int tile_x, int vec) {
-  auto kernel = relax_kernel<kStats>;
+                   void* part, int h, int w, int steps, int d_bits, int tile_y, int tile_x, int4 rect, int vec) {
+  auto kernel = relax_kernel<kStats, kRect>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   kernel<<<grid, threads, smem, st>>>(
       static_cast<const uint8_t*>(v), static_cast<const int32_t*>(key_in), static_cast<const int32_t*>(lab_in),
       static_cast<int32_t*>(key_out), static_cast<int32_t*>(lab_out), static_cast<int32_t*>(flags),
       static_cast<const int32_t*>(chg_prev), static_cast<int32_t*>(chg), static_cast<int32_t*>(part), h, w, steps,
-      d_bits, tile_y, tile_x, vec);
+      d_bits, tile_y, tile_x, rect, vec);
   return cudaGetLastError();
 }
 
@@ -376,17 +406,21 @@ cudaError_t launch(const dim3& grid, int threads, size_t smem, cudaStream_t st, 
 // chg (may be null), one int32 per tile: 1 when a centre cell changed, 0
 // when none did, 2 when skipped; chg_prev (may be null) the previous call's
 // chg, which turns skipping on.  skipped (may be null): the number of tiles
-// skipped.  vec: w % 4 == 0 and the planes 16-byte (v 4-byte) aligned.
-// Launches on `stream`, does not synchronise, returns cudaGetLastError()
-// (nonzero when a launch was refused).
+// skipped.  The centre rectangle [ctr_y0, ctr_y1) x [ctr_x0, ctr_x1) limits
+// the flags (not chg); a rectangle that is not the whole plane cannot be
+// combined with `stats`.  vec: w % 4 == 0 and the planes 16-byte (v 4-byte)
+// aligned.  Launches on `stream`, does not synchronise, returns
+// cudaGetLastError() (nonzero when a launch was refused).
 extern "C" int rwt_relax(const void* v, const void* key_in, const void* lab_in, void* key_out, void* lab_out,
                          void* flags, const void* chg_prev, void* chg, void* part, void* skipped, int h, int w,
-                         int steps, int d_bits, int rows, int warps, int tile_y, int tile_x, int stats, int vec,
-                         void* stream) {
+                         int steps, int d_bits, int rows, int warps, int tile_y, int tile_x, int ctr_y0, int ctr_y1,
+                         int ctr_x0, int ctr_x1, int stats, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool rect = ctr_y0 > 0 || ctr_y1 < h || ctr_x0 > 0 || ctr_x1 < w;
   if (rows != kR || warps < 1 || 32 * warps > kMaxThreads || steps < 1 ||
       tile_x != kWinX - 2 * steps || tile_y != warps * rows - 2 * steps || tile_x < 1 || tile_y < 1 ||
-      part == nullptr || (chg_prev != nullptr && chg == nullptr) || (skipped != nullptr && chg == nullptr))
+      part == nullptr || (chg_prev != nullptr && chg == nullptr) || (skipped != nullptr && chg == nullptr) ||
+      (rect && stats))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((w + tile_x - 1) / tile_x, (h + tile_y - 1) / tile_y);
   const int n_tiles = static_cast<int>(grid.x * grid.y);
@@ -394,10 +428,16 @@ extern "C" int rwt_relax(const void* v, const void* key_in, const void* lab_in, 
   if (e != cudaSuccess) return static_cast<int>(e);
   const size_t smem = (size_t)2 * warps * 4 * 32 * sizeof(int4);
   const int threads = 32 * warps;
-  e = stats ? launch<true>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg, part,
-                           h, w, steps, d_bits, tile_y, tile_x, vec)
-            : launch<false>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg, part,
-                            h, w, steps, d_bits, tile_y, tile_x, vec);
+  const int4 r = make_int4(ctr_y0, ctr_y1, ctr_x0, ctr_x1);
+  if (stats)
+    e = launch<true, false>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg, part,
+                            h, w, steps, d_bits, tile_y, tile_x, r, vec);
+  else if (rect)
+    e = launch<false, true>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg, part,
+                            h, w, steps, d_bits, tile_y, tile_x, r, vec);
+  else
+    e = launch<false, false>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg, part,
+                             h, w, steps, d_bits, tile_y, tile_x, r, vec);
   if (e != cudaSuccess) return static_cast<int>(e);
   relax_reduce<<<1, 1024, 0, st>>>(static_cast<const int32_t*>(chg), static_cast<const int4*>(part), n_tiles,
                                    static_cast<int32_t*>(flags), stats, static_cast<int32_t*>(skipped));

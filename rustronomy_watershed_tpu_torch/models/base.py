@@ -17,7 +17,8 @@ checkpoints step the levels from the host, as the reference does.  The
 random tie-break (``set_tie_break('random', seed)``) runs the plain level
 sweep with ``flood_sweep_random`` on a uniform plane drawn from the seed.
 Checkpointing alone on the packed engine snapshots its relax planes
-(ops/ckpt_relax.py).  The builder refuses the mesh.
+(ops/ckpt_relax.py).  Under ``set_mesh``, ``transform`` runs tiled over
+the mesh (parallel/tiled.py, SPMD: every rank calls it with the full image).
 """
 
 from __future__ import annotations
@@ -90,7 +91,7 @@ def _surviving_min(coords, w: int) -> int:
     return int(keep.min()) + 1
 
 
-def _not_yet(what: str, item: int):
+def _not_yet(what: str, item):
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet "
         f"(ROADMAP queue 1 item {item})"
@@ -169,6 +170,7 @@ class _WatershedBase(WatershedUtils):
         checkpoint_every: int = 16,
         tie_break: str = "min",
         tie_break_seed: int = 0,
+        mesh=None,
     ):
         if backend not in _BACKENDS:
             raise ValueError(f"backend {backend!r} not served ({', '.join(_BACKENDS)})")
@@ -186,6 +188,7 @@ class _WatershedBase(WatershedUtils):
         self.checkpoint_every = checkpoint_every
         self.tie_break = tie_break
         self.tie_break_seed = tie_break_seed
+        self.mesh = mesh
 
     def _resolved_backend(self) -> str:
         """The engine behind the backend.  ``'auto'`` is the packed engine
@@ -235,6 +238,7 @@ class _WatershedBase(WatershedUtils):
             checkpoint_every=self.checkpoint_every,
             tie_break=self.tie_break,
             tie_break_seed=self.tie_break_seed,
+            mesh=self.mesh,
         )
 
     def _prepare(self, input_img, seeds):
@@ -295,6 +299,25 @@ class _WatershedBase(WatershedUtils):
             labels = run_levels_impl(img, labels0, backend="relax", **kw)
         return labels
 
+    def _run_mesh(self, img, labels0, *, n_labels: int):
+        """The transform tiled over the mesh (every rank calls it); a
+        d-field saturation anywhere on the mesh warns on every rank and
+        re-runs on this rank's device on the exact engine (every rank holds
+        the full image, so no collective is needed).  The JAX mesh drops
+        the saturation flag: a deliberate divergence (ROADMAP queue 3)."""
+        from ..parallel.tiled import _tiled_run
+
+        kw = dict(n_labels=n_labels, max_water_level=self.max_water_level, merging=self._merging)
+        labels, _, starved = _tiled_run(img, labels0, self.mesh, **kw)
+        if starved:
+            _warn_saturation()
+            labels = run_levels_impl(img, labels0, backend="relax", device=img.device, **kw)
+        return labels
+
+    def _no_mesh(self, what: str):
+        if self.mesh is not None:
+            raise _not_yet(f"set_mesh with {what}", "13 (b)")
+
     def _native(self, input_img, seeds, **kw):
         return native_transform(
             np.asarray(input_img, dtype=np.uint8), seeds, self.max_water_level,
@@ -309,6 +332,10 @@ class _WatershedBase(WatershedUtils):
         if self.backend == "native" and not self._needs_host_loop():
             out = self._native(input_img, seeds).astype(np.int32)
             return torch.from_numpy(out).to(_ext.resolve_device(self.device)) if device_output else out
+        if self.mesh is not None:
+            img, labels0 = self._prepare(input_img, seeds)
+            labels = self._run_mesh(img, labels0, n_labels=len(seeds))
+            return labels if device_output else labels.cpu().numpy()
         if self._ckpt_fast_path():
             img, labels0 = self._prepare(input_img, seeds)
             ckpt = TransformCheckpointer(self.checkpoint_dir, self.checkpoint_every)
@@ -329,6 +356,9 @@ class _WatershedBase(WatershedUtils):
         the hook's results (empty without a hook), like the reference
         (src/lib.rs:1509-1521)."""
         if self.wlvl_hook is None and not self._needs_host_loop():
+            if self.mesh is not None:
+                self.transform(input_img, seeds, device_output=True)
+                return []
             img, labels0 = self._prepare(input_img, seeds)
             self._run(img, labels0, n_labels=len(seeds))
             return []
@@ -343,6 +373,7 @@ class _WatershedBase(WatershedUtils):
         reference's ``n_pixels + 1`` rows (src/lib.rs:630, SURVEY.md Q10);
         pass e.g. ``len(seeds) + 1`` for compact rows.  Rows of a result
         over 64 MB are views of one block unless ``copy=True``."""
+        self._no_mesh("transform_to_list")
         if self.backend == "native" and not self._needs_host_loop():
             _, sizes = self._native(input_img, seeds, with_sizes=True)
             if counts_length is None:
@@ -400,6 +431,7 @@ class _WatershedBase(WatershedUtils):
         memory, as in the reference (src/lib.rs:1229-1232).  The level sweep
         stacks them on the card first, unless the stack would not fit; then
         the host loop collects one plane per level."""
+        self._no_mesh("transform_history")
         backend = self._resolved_backend()
         compact = backend in ("packed", "relax")
         route_host = self._needs_host_loop() or not (

@@ -29,7 +29,12 @@ on the card the calls after the first skip quiet tiles)
 A call's flags are one int32 tensor ``[changed_any, changed_last, sat]``:
 any centre cell changed in any sweep / in the last sweep (the fixed-point
 witness) / a claimed cell holds label 0 (the d-field saturation signature at
-the fixed point, pallas_relax.py:474-498).  A call with ``stats=True``
+the fixed point, pallas_relax.py:474-498).  The centre is the whole plane,
+or the rectangle ``ctr=(y0, y1, x0, x1)`` (rows ``[y0, y1)``, columns
+``[x0, x1)``): the counterpart of the TPU kernel's ``ctr_cols=(lo, hi)``,
+which a mesh tile's plane needs because its halo cells evolve within a call
+and are rewritten by the next halo refresh (parallel/tiled.py).  A call with
+``stats=True``
 appends the merging shortcut's statistics of its output planes
 (pallas_relax.py:575-604; interior = rows 1..h-2, columns 1..w-2, claimed =
 label != 0): ``[n_unclaimed_interior, any_claimed_border,
@@ -112,6 +117,20 @@ def _key_consts(d_bits):
     return d_bits, (1 << d_bits) - 1, NEVER_FILL << d_bits
 
 
+def _rect(ctr, h: int, w: int, stats: bool):
+    """``(y0, y1, x0, x1)`` of the centre rectangle ``ctr`` (the whole
+    plane when None); refuses an empty one, one outside the plane, and a
+    rectangle that is not the whole plane together with ``stats``."""
+    if ctr is None:
+        return 0, h, 0, w
+    y0, y1, x0, x1 = (int(c) for c in ctr)
+    if not (0 <= y0 < y1 <= h and 0 <= x0 < x1 <= w):
+        raise ValueError(f"centre rectangle {ctr} is empty or outside the {h}x{w} plane")
+    if stats and (y0, y1, x0, x1) != (0, h, 0, w):
+        raise ValueError("stats=True takes the whole plane as its centre, not a rectangle")
+    return y0, y1, x0, x1
+
+
 def merge_stats_plain(lab):
     """``[n_unclaimed_interior, any_claimed_border, min_claimed_interior_label]``
     of a label plane, as int32 tensors (see the module docstring)."""
@@ -124,11 +143,12 @@ def merge_stats_plain(lab):
     ]
 
 
-def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False):
+def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, ctr=None):
     """Plain PyTorch twin of the relax kernel: ``steps`` Jacobi sweeps.
     Returns ``(key', lab', flags)``."""
     _ext.launches["relax_plain"] += 1
     d_bits, d_mask, unclaimed = _key_consts(d_bits)
+    y0, y1, x0, x1 = _rect(ctr, *key.shape, stats)
     vcand = torch.clamp_max((v.to(torch.int32) << d_bits) + 1, unclaimed)
     any_c = last_c = torch.zeros((), dtype=torch.bool, device=key.device)
     for _ in range(steps):
@@ -141,10 +161,10 @@ def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None, stats=F
         for k, l in zip(kq, lq):
             labmin = torch.minimum(labmin, torch.where(k < best, l, _BIG_LAB))
         new_lab = torch.where((labmin == _BIG_LAB) | (best == unclaimed), lab, labmin)
-        last_c = ((best != key) | (new_lab != lab)).any()
+        last_c = ((best != key) | (new_lab != lab))[y0:y1, x0:x1].any()
         any_c = any_c | last_c
         key, lab = best, new_lab
-    sat = ((key < unclaimed) & (lab == 0)).any()
+    sat = ((key < unclaimed) & (lab == 0))[y0:y1, x0:x1].any()
     flags = [t.to(torch.int32) for t in (any_c, last_c, sat)]
     flags = torch.stack(flags + (merge_stats_plain(lab) if stats else []))
     if out is not None:
@@ -174,14 +194,15 @@ class _Tiles:
         return prev, self.chg[k % 2]
 
 
-def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, tiles=None):
+def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, tiles=None, ctr=None):
     """Launch csrc/relax.cu: ``steps`` Jacobi sweeps of CUDA planes into
     ``out`` (fresh planes when None; never the input planes).  ``tiles``
     (relax_fixed_point's state) lets the call skip the tiles that the
     previous call left quiet, and counts them after the flags in
-    ``tiles.buf``."""
+    ``tiles.buf``.  ``ctr`` limits the flags to a centre rectangle."""
     d_bits, _, _ = _key_consts(d_bits)
     h, w = key.shape
+    rect = _rect(ctr, h, w, stats)
     if v.dtype != torch.uint8 or key.dtype != torch.int32 or lab.dtype != torch.int32:
         raise ValueError("relax kernel takes uint8 v and int32 key/lab planes")
     if v.shape != key.shape or lab.shape != key.shape or key.dim() != 2:
@@ -213,29 +234,35 @@ def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=
     err = _ext.lib().rwt_relax(
         v.data_ptr(), key.data_ptr(), lab.data_ptr(), key_out.data_ptr(), lab_out.data_ptr(),
         buf.data_ptr(), ptr(prev), ptr(chg), part.data_ptr(), ptr(skipped), h, w, steps, d_bits,
-        plan["rows"], plan["warps"], plan["tile_y"], plan["tile_x"], int(stats), int(vec),
+        plan["rows"], plan["warps"], plan["tile_y"], plan["tile_x"], *rect, int(stats), int(vec),
         _ext.stream_ptr(key),
     )
     _ext.check(err, "rwt_relax")
     _ext.launches["relax"] += 1
+    if rect != (0, h, 0, w):
+        _ext.launches["relax_ctr"] += 1
     return key_out, lab_out, buf[:n_flags]
 
 
-def relax_block(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False):
+def relax_block(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, ctr=None, tiles=None):
     """One call = exactly ``steps`` global Jacobi sweeps of the packed update.
 
     CUDA planes launch the kernel, CPU planes run the plain twin.  Returns
-    ``(key', lab', flags)`` with flags ``[changed_any, changed_last, sat]``,
-    plus the three statistics with ``stats=True``.
+    ``(key', lab', flags)`` with flags ``[changed_any, changed_last, sat]``
+    over the centre rectangle ``ctr`` (the whole plane when None), plus the
+    three statistics with ``stats=True``.  ``tiles`` (``_Tiles``, CUDA
+    planes only) lets the kernel skip quiet tiles.
     """
     if key.device.type == "cuda":
-        return relax_block_kernel(v, key, lab, steps, d_bits, out=out, stats=stats)
+        return relax_block_kernel(v, key, lab, steps, d_bits, out=out, stats=stats, tiles=tiles, ctr=ctr)
     if key.device.type == "cpu":
-        return relax_block_plain(v, key, lab, steps, d_bits, out=out, stats=stats)
+        if tiles is not None:
+            raise ValueError("tile state is for the kernel's quiet-tile skipping on CUDA planes")
+        return relax_block_plain(v, key, lab, steps, d_bits, out=out, stats=stats, ctr=ctr)
     raise ValueError(f"unsupported device {key.device}")
 
 
-def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, stats=False, on_call=None):
+def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, stats=False, on_call=None, ctr=None):
     """Iterate relax_block until a call's last sweep changed nothing.
 
     ``key``/``lab`` serve as one of the two ping-pong buffers and are
@@ -246,7 +273,8 @@ def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, s
     these are the fixed point's statistics.  The host reads one small flag
     tensor per call.  ``on_call(src, dst, flags, skipped)``, when given,
     sees every call: its input and output planes, its flags and the number
-    of tiles it skipped.
+    of tiles it skipped.  ``ctr`` limits every call's flags to a centre
+    rectangle.
 
     On the card a call skips the tiles whose 3x3 neighbourhood of tiles
     changed no centre cell in the previous call (``quiet_tiles``), which is
@@ -264,11 +292,10 @@ def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, s
     if key.is_cuda:
         tiles = _Tiles(relax_plan(*key.shape, steps), 6 if stats else 3, key.device)
     while True:
+        k2, l2, flags = relax_block(v, *src, steps, d_bits, out=dst, stats=stats, ctr=ctr, tiles=tiles)
         if tiles is None:
-            k2, l2, flags = relax_block(v, *src, steps, d_bits, out=dst, stats=stats)
             f, skipped = flags.tolist(), 0
         else:
-            k2, l2, flags = relax_block_kernel(v, *src, steps, d_bits, out=dst, stats=stats, tiles=tiles)
             *f, skipped = tiles.buf.tolist()
         if on_call is not None:
             on_call(src, (k2, l2), flags, skipped)

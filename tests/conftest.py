@@ -32,3 +32,4 @@ def pytest_configure(config):
         "markers",
         "cuda: runs a CUDA kernel on the card; skips on hosts without CUDA",
     )
+    config.addinivalue_line("markers", "slow: a long test that Tier-1 leaves out (-m 'not slow')")

@@ -2,6 +2,7 @@
 relax_pallas pipeline (Pallas interpret mode), the public API against the
 JAX public API, and the committed goldens.  Integer labels, tolerance 0."""
 
+import contextlib
 from functools import partial
 from pathlib import Path
 
@@ -19,6 +20,7 @@ from rustronomy_watershed_tpu_torch.ops.flood_block import make_sweep_fn
 from rustronomy_watershed_tpu_torch.ops.level_driver import run_levels_impl
 from rustronomy_watershed_tpu_torch.ops.pipeline import max_seed_count, watershed_e2e
 from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
+from torch_mesh import mesh_of, one_rank_group
 
 torch.set_num_threads(1)
 
@@ -111,6 +113,15 @@ def _plots(builder, folder):
     return builder.set_plot_folder(str(out))
 
 
+def _one_by_one(builder):
+    """A 1 x 1 ``("y", "x")`` mesh for the builder's own package: a
+    DeviceMesh of the one-rank gloo group (``one_rank_group``) or a JAX
+    Mesh of one virtual CPU device."""
+    if isinstance(builder, TransformBuilder):
+        return mesh_of((1, 1))
+    return jax.sharding.Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("y", "x"))
+
+
 @pytest.mark.parametrize(
     "configure,item",
     [
@@ -121,31 +132,28 @@ def _plots(builder, folder):
         (lambda b, d: b.set_sweep_impl(_sweep_for(b)), 11),
         (lambda b, d: b.set_tie_break("random", 3), 11),
         (lambda b, d: b.set_checkpoint(d / type(b).__module__.split(".")[0]), 12),
-        (lambda b, d: b.set_mesh(object()), 13),
+        (lambda b, d: b.set_mesh(_one_by_one(b)), 13),
         (lambda b, d: b.set_backend("jnp"), 11),
         (lambda b, d: b.set_backend("native"), 8),
     ],
 )
 def test_unserved_options_raise_at_build(configure, item, tmp_path):
-    """The mesh raises at build time naming its ROADMAP item; every other
-    option of this list is served and gives the JAX package's labels.  The
-    random tie-break draws its plane from another generator than the JAX
-    package's, so there the merging labels and the segmenting claimed set,
-    which no draw changes, are held equal."""
-    tb = configure(_cpu_builder().set_max_water_lvl(60), tmp_path)
-    if item == 13:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-            tb.build_segmenting()
-        return
-    jb = configure(JaxBuilder.default().set_max_water_lvl(60), tmp_path)
-    img = np.random.default_rng(8).integers(0, 70, size=(18, 21)).astype(np.uint8)
-    seeds = _cpu_builder().build_segmenting().find_local_minima(img) + [(0, 3)]
-    for build in ("build_segmenting", "build_merging"):
-        got = getattr(tb, build)().transform(img, seeds)
-        want = np.asarray(getattr(jb, build)().transform(img, seeds))
-        if tb.tie_break == "random" and build == "build_segmenting":
-            got, want = got != 0, want != 0
-        np.testing.assert_array_equal(got, want)
+    """Every option of this list is served and gives the JAX package's
+    labels; the mesh (item 13) on a one-rank gloo group in this process.
+    The random tie-break draws its plane from another generator than the
+    JAX package's, so there the merging labels and the segmenting claimed
+    set, which no draw changes, are held equal."""
+    with one_rank_group(tmp_path) if item == 13 else contextlib.nullcontext():
+        tb = configure(_cpu_builder().set_max_water_lvl(60), tmp_path)
+        jb = configure(JaxBuilder.default().set_max_water_lvl(60), tmp_path)
+        img = np.random.default_rng(8).integers(0, 70, size=(18, 21)).astype(np.uint8)
+        seeds = _cpu_builder().build_segmenting().find_local_minima(img) + [(0, 3)]
+        for build in ("build_segmenting", "build_merging"):
+            got = getattr(tb, build)().transform(img, seeds)
+            want = np.asarray(getattr(jb, build)().transform(img, seeds))
+            if tb.tie_break == "random" and build == "build_segmenting":
+                got, want = got != 0, want != 0
+            np.testing.assert_array_equal(got, want)
 
 
 def test_unserved_entries_raise():

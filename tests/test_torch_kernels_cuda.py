@@ -552,6 +552,149 @@ def test_relax_fixed_point_skips_quiet_tiles(cuda):
     assert got[2:] == want[2:]
 
 
+def _rects(h, w):
+    """The whole plane, the mesh's inner rectangle, one that cuts the
+    kernel's tiles off-centre, a one-row and a one-cell rectangle."""
+    return [(0, h, 0, w), (8, h - 8, 8, w - 8), (37, h - 50, 13, w - 101), (h // 2, h // 2 + 1, 0, w),
+            (h - 1, h, w - 1, w)]
+
+
+@pytest.mark.parametrize("shape", [(130, 257), (1023, 1031), (300, 2048)])
+def test_relax_kernel_rectangle_matches_twin(cuda, shape):
+    """csrc/relax.cu's centre rectangle: planes and flags equal the twin's
+    with the same rectangle, from a fresh, a mid and a fixed-point state."""
+    img = torch.from_numpy(_field(shape, 254, seed=3)).to(cuda)
+    v, key, lab, _ = pack.pack_kernel(img)
+    mid = relax.relax_block_kernel(v, key, lab, 5)[:2]
+    fixed = relax.relax_fixed_point(v, key.clone(), lab.clone())[:2]
+    for state in ((key, lab), mid, fixed):
+        for rect in _rects(*shape):
+            _assert_same(relax.relax_block_kernel(v, *state, 8, ctr=rect), relax.relax_block_plain(v, *state, 8, ctr=rect))
+
+
+def test_relax_kernel_rectangle_saturation(cuda):
+    """The saturation bit of a 7-bit d field counts the rectangle only."""
+    img = np.full((41, 38), 255, np.uint8)
+    img[1:40:2, 1:37] = 5
+    img[2:39:4, 36] = 5
+    img[4:39:4, 1] = 5
+    lab0 = torch.zeros(img.shape, dtype=torch.int32, device=cuda)
+    lab0[1, 1] = 1
+    v, key, lab = pack.pack_domain(torch.from_numpy(img).to(cuda), lab0, d_bits=7)
+    key, lab, _ = relax.relax_fixed_point(v, key, lab, d_bits=7)
+    fired = set()
+    for rect in _rects(41, 38)[:2] + [(0, 2, 0, 38), (39, 41, 0, 38)]:
+        got = relax.relax_block_kernel(v, key, lab, 8, 7, ctr=rect)
+        _assert_same(got, relax.relax_block_plain(v, key, lab, 8, 7, ctr=rect))
+        fired.add(got[2][relax.SAT].item())
+    assert fired == {0, 1}
+
+
+@pytest.mark.parametrize("shape", [(130, 257), (1023, 1031)])
+def test_relax_fixed_point_rectangle_skipping_matches_twin(cuda, shape):
+    """The skipping fixed point with a rectangle (a 1 x 1 mesh's plane):
+    every call equals the twin's call with the rectangle, both ping-pong
+    directions included, and the result the twin's fixed point."""
+    img = torch.from_numpy(_field(shape, 254, seed=shape[1])).to(cuda)
+    v, key, lab, _ = pack.pack_kernel(img)
+    h, w = shape
+    for rect in _rects(h, w)[1:3]:
+        log = []
+
+        def on_call(src, dst, flags, skipped, rect=rect):
+            _assert_same((*dst, flags), relax.relax_block_plain(v, *src, relax.DEFAULT_STEPS, ctr=rect))
+            log.append(skipped)
+
+        got = relax.relax_fixed_point(v, key.clone(), lab.clone(), ctr=rect, on_call=on_call)
+        want = relax.relax_fixed_point(v.cpu(), key.cpu(), lab.cpu(), ctr=rect)
+        assert len(log) >= 2 and log[0] == 0
+        _assert_same(got[:2], [t.to(cuda) for t in want[:2]])
+        assert got[2:] == want[2:]
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+@pytest.mark.parametrize("variant", ["segmenting", "merging"])
+def test_one_by_one_mesh_on_card(cuda, tmp_path, backend, variant):
+    """``set_mesh`` on a one-rank group in this process, the tile on the
+    card: NCCL takes the CUDA tensors, gloo stages them through the host;
+    the labels equal the single-device transform's."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    img = _field((300, 420), 254, seed=8)
+    tb = TransformBuilder().set_device(cuda)
+    seeds = tb.build_segmenting().find_local_minima(img)
+    want = getattr(tb, f"build_{variant}")().transform(img, seeds)
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group(backend, store=store, rank=0, world_size=1, timeout=timedelta(seconds=60))
+    try:
+        mesh = DeviceMesh("cuda" if backend == "nccl" else "cpu", [[0]], mesh_dim_names=("y", "x"))
+        _ext.reset_launches()
+        got = getattr(TransformBuilder().set_device(cuda).set_mesh(mesh), f"build_{variant}")().transform(img, seeds)
+        assert _ext.launches["relax"] > 0 and _ext.launches["relax_plain"] == 0
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got, want)
+
+
+def _card_ranks(rank, img, seeds):
+    """One gloo rank of a 2 x 2 mesh computing its tile on the card."""
+    import torch_mesh
+
+    mesh = torch_mesh.mesh_of((2, 2))
+    tb = TransformBuilder().set_device("cuda").set_mesh(mesh)
+    return [getattr(tb, f"build_{v}")().transform(img, seeds) for v in ("segmenting", "merging")]
+
+
+def _nccl_ranks(rank, img, seeds):
+    """One NCCL rank of a 2 x 2 mesh, its tile on card ``rank``."""
+    import torch_mesh
+
+    mesh = torch_mesh.mesh_of((2, 2), "cuda")
+    tb = TransformBuilder().set_device(f"cuda:{rank}").set_mesh(mesh)
+    _ext.reset_launches()
+    out = [getattr(tb, f"build_{v}")().transform(img, seeds) for v in ("segmenting", "merging")]
+    return out, dict(_ext.launches)
+
+
+def test_two_by_two_nccl_mesh_on_four_cards(cuda, tmp_path):
+    """Four NCCL ranks, a card each: the halo strips go point to point on
+    the card, the reductions and the gather by NCCL; every rank's labels
+    equal the single-device labels, both variants, and every rank launched
+    the relax kernel with its centre rectangle."""
+    from torch_mesh import run_ranks
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    img = _field((1031, 1209), 254, seed=10)
+    tb = TransformBuilder().set_device(cuda)
+    seeds = tb.build_segmenting().find_local_minima(img)
+    want = [getattr(tb, f"build_{v}")().transform(img, seeds) for v in ("segmenting", "merging")]
+    _ext.lib()
+    for got, counts in run_ranks(_nccl_ranks, 4, tmp_path, img, seeds, deadline=300, backend="nccl"):
+        assert counts["relax"] > 0 and counts["relax_ctr"] == counts["relax"] and counts["relax_plain"] == 0
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_two_by_two_gloo_mesh_on_one_card(cuda, tmp_path):
+    """Four gloo ranks, each a process computing its tile on the one card,
+    the strips through host memory: every rank's labels equal the
+    single-device labels, both variants."""
+    from torch_mesh import run_ranks
+
+    img = _field((517, 611), 254, seed=9)
+    tb = TransformBuilder().set_device(cuda)
+    seeds = tb.build_segmenting().find_local_minima(img)
+    want = [getattr(tb, f"build_{v}")().transform(img, seeds) for v in ("segmenting", "merging")]
+    _ext.lib()  # built once here, before the ranks load it
+    for got in run_ranks(_card_ranks, 4, tmp_path, img, seeds, deadline=300):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.parametrize(
     "shape,route",
     [((64, 96), "vec"), ((1025, 1028), "vec"), ((1, 4), "vec"), ((5, 4), "vec"), ((4096, 4096), "vec"),

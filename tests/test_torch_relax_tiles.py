@@ -209,3 +209,142 @@ def test_skipping_model_on_the_kernel_geometry():
     flags = calls[-1]
     assert (flags[relax.N_UNCL], bool(flags[relax.ANY_BORDER]), flags[relax.GMIN]) == want[3]
     assert len(skips) >= 3 and skips[1] == 8  # only the corner tile's 2 x 2 block runs
+
+
+# -- The skip rule on a mesh ---------------------------------------------------
+#
+# A 1 x 2 mesh emulated in one process: each rank holds its (h + 2k, w + 2k)
+# planes, a round is one call of k sweeps per rank (its flags over the
+# centre rectangle), then the halo refresh writes the other rank's centre
+# (and the off-grid fill) into the halo band, as parallel/tiled.py does.  The
+# refresh writes into the planes between calls, which breaks the premise of
+# the quiet-tile rule (the ping-pong with no outside writes).
+
+
+def _model_call(v, src, dst, steps, tile, run, ctr):
+    """One call of the kernel's tile model: the tiles in ``run`` take the
+    twin's output and report whether they changed; the others keep what
+    ``dst`` holds.  Returns ``(dst, chg, last)`` with ``last`` the
+    last-sweep change over the centre rectangle of the tiles that ran."""
+    planes = [src]
+    for _ in range(steps):
+        planes.append(relax.relax_block_plain(v, *planes[-1], 1)[:2])
+    out = planes[-1]
+    ty, tx = tile
+    y0, y1, x0, x1 = ctr
+    gy, gx = -(-src[0].shape[0] // ty), -(-src[0].shape[1] // tx)
+    chg = torch.full((gy, gx), 2, dtype=torch.int32)
+    inside = torch.zeros(src[0].shape, dtype=torch.bool)
+    inside[y0:y1, x0:x1] = True
+    last = False
+    for (i, j), (ys, xs) in _tile_slices(src[0].shape, ty, tx):
+        if not run[i, j]:
+            continue
+        dst[0][ys, xs], dst[1][ys, xs] = out[0][ys, xs], out[1][ys, xs]
+        moved = [((a[0] != b[0]) | (a[1] != b[1]))[ys, xs] for a, b in zip(planes, planes[1:])]
+        chg[i, j] = int(any(bool(m.any()) for m in moved))
+        last = last or bool((moved[-1] & inside[ys, xs]).any())
+    return dst, chg, last
+
+
+def mesh_model(img, lab0, k, tile, skip):
+    """The 1 x 2 mesh's round loop (witness + halo stability) with the
+    quiet-tile rule on (``skip``: each rank runs the tiles whose 3 x 3
+    neighbourhood changed in its previous call) or off (every tile runs).
+    Returns the labels, the rounds, and how many times a refresh changed
+    a halo cell of a tile that the rank's next call skipped."""
+    _, _, unclaimed = relax._key_consts(None)
+    v, key, lab = pack_domain(torch.from_numpy(img), torch.from_numpy(lab0))
+    h, w2 = key.shape
+    w = w2 // 2
+    pad = lambda t, fill: torch.nn.functional.pad(t, (k, k, k, k), value=fill)  # noqa: E731
+    gv, gkey, glab = pad(v, 255), pad(key, unclaimed), pad(lab, 0)
+    cols = [slice(r * w, r * w + w + 2 * k) for r in range(2)]
+    vs = [gv[:, c].clone() for c in cols]
+    src = [(gkey[:, c].clone(), glab[:, c].clone()) for c in cols]
+    dst = [(torch.full_like(s[0], -7), torch.full_like(s[1], -7)) for s in src]
+    ctr = (k, k + h, k, k + w)
+    halo = torch.ones(src[0][0].shape, dtype=torch.bool)
+    halo[k : k + h, k : k + w] = False
+    ty, tx = tile
+    chg_prev = [None, None]
+    need, rounds, missed = [True, True], 0, 0
+    strips = [None, None]  # the halo band each rank received last
+
+    def refresh():
+        """Write the halo bands; per rank, where the incoming strips differ
+        from the previous round's (not from the in-plane halo, which the
+        sweeps moved)."""
+        whole = [torch.cat([s[i][k : k + h, k : k + w] for s in src], dim=1) for i in (0, 1)]
+        whole = [pad(whole[0], unclaimed), pad(whole[1], 0)]
+        moved = []
+        for r in range(2):
+            new = [p[:, cols[r]][halo] for p in whole]
+            old = strips[r] or new
+            moved.append(torch.zeros(halo.shape, dtype=torch.bool).masked_scatter_(
+                halo, (new[0] != old[0]) | (new[1] != old[1])))
+            strips[r] = new
+            for i in (0, 1):
+                src[r][i][halo] = new[i]
+        return moved
+
+    refresh()
+    while True:
+        rounds += 1
+        last = [False, False]
+        for r in range(2):
+            if not need[r]:
+                continue
+            gy, gx = -(-src[r][0].shape[0] // ty), -(-src[r][0].shape[1] // tx)
+            run = torch.ones((gy, gx), dtype=torch.bool)
+            if skip and chg_prev[r] is not None:
+                run = ~relax.quiet_tiles(chg_prev[r])
+            out, chg_prev[r], last[r] = _model_call(vs[r], src[r], dst[r], k, tile, run, ctr)
+            src[r], dst[r] = out, src[r]
+        moved = refresh()
+        for r in range(2):
+            if skip and chg_prev[r] is not None:
+                quiet = relax.quiet_tiles(chg_prev[r])
+                for (i, j), (ys, xs) in _tile_slices(moved[r].shape, ty, tx):
+                    missed += int(bool(quiet[i, j]) and bool(moved[r][ys, xs].any()))
+        need = [last[r] or bool(moved[r].any()) for r in range(2)]
+        if not any(need):
+            break
+    labels = torch.cat([s[1][k : k + h, k : k + w] for s in src], dim=1)
+    return labels, rounds, missed
+
+
+def _twin_labels(img, lab0):
+    v, key, lab = pack_domain(torch.from_numpy(img), torch.from_numpy(lab0))
+    return relax.relax_fixed_point(v, key, lab, steps=2)[1]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_mesh_without_skipping_ends_at_the_twin_fixed_point(seed):
+    """The rule taken (skipping off on a mesh of more than one rank): the
+    emulated 1 x 2 mesh's labels equal the twin's single-plane fixed point,
+    on random fields with seeds on both sides."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 40, (30, 44)).astype(np.uint8)
+    lab0 = np.zeros(img.shape, np.int32)
+    pts = rng.integers(1, [29, 43], size=(5, 2))
+    lab0[pts[:, 0], pts[:, 1]] = np.arange(1, 6)
+    labels, rounds, _ = mesh_model(img, lab0, 2, (4, 5), skip=False)
+    assert torch.equal(labels, _twin_labels(img, lab0)) and rounds > 2
+
+
+def test_unmodified_skip_rule_is_not_exact_on_a_mesh():
+    """The quiet-tile rule as it stands, on the same mesh: the right rank
+    holds no seed, so its first call changes nothing and every tile goes
+    quiet; the left seed's claim then arrives through the halo refresh into
+    tiles that the rule skips, and the right half is never claimed.  The
+    rule with skipping off gets the twin's labels."""
+    img = np.full((30, 44), 10, np.uint8)
+    lab0 = np.zeros(img.shape, np.int32)
+    lab0[15, 5] = 1
+    want = _twin_labels(img, lab0)
+    assert (want[1:-1, 22:-1] == 1).all()
+    labels, _, missed = mesh_model(img, lab0, 2, (4, 5), skip=True)
+    assert missed > 0 and not torch.equal(labels, want)
+    assert (labels[:, 22:] == 0).all()
+    assert torch.equal(mesh_model(img, lab0, 2, (4, 5), skip=False)[0], want)

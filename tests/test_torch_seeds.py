@@ -87,7 +87,8 @@ def test_pre_process_matches_jax(max_val):
 def test_import_leaves_jax_out():
     code = (
         "import sys, rustronomy_watershed_tpu_torch, rustronomy_watershed_tpu_torch.prelude, "
-        "rustronomy_watershed_tpu_torch.convert, rustronomy_watershed_tpu_torch.ops.pipeline; "
+        "rustronomy_watershed_tpu_torch.convert, rustronomy_watershed_tpu_torch.ops.pipeline, "
+        "rustronomy_watershed_tpu_torch.parallel; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'rustronomy_watershed_tpu.'))]; "
         "sys.exit(1 if bad or 'rustronomy_watershed_tpu' in sys.modules else 0)"
     )

@@ -38,3 +38,16 @@ def poisson_u8(shape, lam=30.0, seed=0):
     draw) as a u8 image: values clipped to 0..254, a narrow range around
     ``lam``."""
     return np.clip(np.random.default_rng(seed).poisson(lam, size=shape), 0, 254).astype(np.uint8)
+
+
+def corridor(h=41, w=38, lvl=5):
+    """A u8 image of NEVER_FILL with a one-pixel corridor of value ``lvl``
+    snaking through full odd rows: seeded at (1, 1), its plateau ring index
+    runs to about h * w / 2, past a narrowed d field (chip_smoke.py phase
+    4's 7-bit case)."""
+    img = np.full((h, w), 255, np.uint8)
+    for i, y in enumerate(range(1, h - 1, 2)):
+        img[y, 1 : w - 1] = lvl
+        if y + 2 < h - 1:
+            img[y + 1, w - 2 if i % 2 == 0 else 1] = lvl
+    return img

@@ -12,11 +12,13 @@ that checkout (building its kernels there) and times ``watershed_e2e`` on the
 ``default_rng(0).integers(0, 254)`` and the same draw with 10% of its pixels
 set to 255 (NaN dots).  Segmenting on the uniform field; merging on both, where the checkout
 serves it; at 4096^2 and below also NaN-dot merging on the legacy coarse
-rounds (``RWT_COARSE_MULTI=0``).  Median of 9 warm runs, CUDA events around each call (the host's
-flag reads inside).  ``--profile`` also traces 5 runs of each under
-``torch.profiler``: device busy time per run (the union of the card's kernel,
-copy and set intervals), the wall of the same traced runs (CUDA events), the
-idle share 1 - busy / wall, and the device time per kernel name.
+rounds (``RWT_COARSE_MULTI=0``).  Median of 9 warm runs, CUDA events around
+each call (the host's flag reads inside), and the host's time to issue one
+relax call of the merging path (``relax_host_us``: launches only, no flag
+read).  ``--profile`` also traces 5 runs of each under ``torch.profiler``:
+device busy time per run (the union of the card's kernel, copy and set
+intervals), the wall of the same traced runs (CUDA events), the idle share
+1 - busy / wall, and the device time per kernel name.
 ``--level-sweep`` times the level-sweep engine instead (``run_levels_impl``,
 ``backend="flood"``, the flood kernel) from the seeds of the image, painted:
 segmenting on the uniform field and on the Poisson(30) counts field of
@@ -91,6 +93,7 @@ def child(profile: bool, side: int, level_sweep: bool = False) -> dict:
     if level_sweep:
         return _timed_cases(_level_sweep_cases(side, dev), profile, side, reps=5, traced=1, once={"level_sweep_merging"})
     dense, dots = (torch.from_numpy(a).to(dev) for a in _fields(side))
+    host_us = _relax_host_us(dense)
     cases = {
         "segmenting": lambda: watershed_e2e(dense, device=dev),
         "merging_dense": lambda: watershed_e2e(dense, merging=True, device=dev),
@@ -107,7 +110,33 @@ def child(profile: bool, side: int, level_sweep: bool = False) -> dict:
                 sm._COARSE_MULTI = True
 
         cases["merging_nan10_legacy"] = legacy
-    return _timed_cases(cases, profile, side, reps=9, traced=5)
+    return dict(_timed_cases(cases, profile, side, reps=9, traced=5), relax_host_us=host_us)
+
+
+def _relax_host_us(img) -> float:
+    """The host's time to issue one relax call as the merging path makes it
+    (``relax_block`` with statistics on the packed planes of ``img``): 10
+    calls queued after a synchronise, the median of 5 such batches (after
+    one warm batch), in us a call.  No flag is read, so nothing waits for
+    the card."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from rustronomy_watershed_tpu_torch.ops import pack, relax
+
+    v, key, lab = pack.pack_kernel(img)[:3]
+    out = (torch.empty_like(key), torch.empty_like(lab))
+    ts = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            relax.relax_block(v, key, lab, relax.DEFAULT_STEPS, out=out, stats=True)
+        ts.append((time.perf_counter() - t0) / 10 * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(ts[1:]))
 
 
 def _timed_cases(cases: dict, profile: bool, side: int, *, reps: int, traced: int, once=frozenset()) -> dict:

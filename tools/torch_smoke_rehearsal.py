@@ -15,10 +15,15 @@ fails here loudly.  Phase 20 (the single-device options) runs on the cut
 fields too: checkpoints at 256^2 and a 320^2 plane snapshot, the flood
 kernel's host loop on the cut golden_morph_v1, the random tie-break on a
 512^2 Poisson field on both "devices", the native engine on the host.
+Phases 21-23 (the relax kernel's centre rectangle, the one-rank mesh on
+gloo instead of NCCL, the 2 x 2 gloo mesh whose four ranks run the twins)
+run on the cut fields; ``--mesh`` runs phases 1, 2 and 21-23 alone (their
+inputs made as main() makes them), in about a minute.
 """
 
 from __future__ import annotations
 
+import importlib
 import os
 import sys
 import time
@@ -70,6 +75,14 @@ CUTS = [
     ('zc["merging/sizes"]', 'np.stack([r for _, r in results[("auto", "list")]])'),
     ('torch.device("cuda")', 'torch.device("cpu")'),
     ('set_device("cuda")', 'set_device("cpu")'),
+    # The one-rank mesh on gloo and the CPU; the 2x2 mesh's ranks are fresh
+    # processes without the fakes, so they run the twins on the CPU.
+    ('dist.init_process_group("nccl"', 'dist.init_process_group("gloo"'),
+    ('mesh1.get_group("y")) == "nccl"', 'mesh1.get_group("y")) == "gloo"'),
+    ('DeviceMesh("cuda", [[0]]', 'DeviceMesh("cpu", [[0]]'),
+    ('    torch.cuda.set_device(0)\n', ''),
+    ('        check(all(mesh_kernel_path(p["launches"]) for p in per),',
+     '        check(all(p["launches"]["relax_plain"] > 0 for p in per),'),
 ]
 
 
@@ -94,7 +107,16 @@ def _fake_kernels():
         return pack_kernel(img, **kw)
 
     pack.pack_kernel = pack_routed
-    relax.relax_block_kernel = as_kernel(relax.relax_block_plain, "relax")
+    relax_plain = as_kernel(relax.relax_block_plain, "relax")
+
+    def relax_kernel(v, key, lab, steps, d_bits=None, *, tiles=None, ctr=None, stats=False, **kw):
+        """The twin (no tile state), counted as the kernel with its centre
+        rectangle."""
+        if relax._rect(ctr, *key.shape, stats) != (0, key.shape[0], 0, key.shape[1]):
+            _ext.launches["relax_ctr"] += 1
+        return relax_plain(v, key, lab, steps, d_bits, ctr=ctr, stats=stats, **kw)
+
+    relax.relax_block_kernel = relax_kernel
     relax.relax_block = lambda *a, **k: relax.relax_block_kernel(*a, **k)
 
     def pack_fused(img, device, **kw):
@@ -218,7 +240,47 @@ def main() -> int:
     mod.__file__ = path
     exec(compile(src, path, "exec"), mod.__dict__)
     mod.gpu_line = lambda: "rehearsal (CPU), no power limit"
+    # The 2x2 mesh's spawned ranks import their function by name: take it
+    # from chip_smoke.py itself (this module exists in this process only).
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    mod.mesh_rank = importlib.import_module("chip_smoke").mesh_rank
+    if "--mesh" in sys.argv[1:]:
+        return mesh_only(mod)
     return mod.main()
+
+
+def mesh_only(mod) -> int:
+    """Phases 21-23 of the rehearsal alone, their inputs made as main()
+    makes them at the cut size."""
+    import numpy as np
+
+    from rustronomy_watershed_tpu_torch.ops import pack
+    from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
+
+    dev, side = torch.device("cpu"), mod.SIDE
+    rng = np.random.default_rng(0)
+    dots = rng.integers(0, 254, (side, side)).astype(np.uint8)
+    dots[rng.random((side, side)) < 0.1] = 255
+    img_np = np.random.default_rng(0).integers(0, 254, (side, side)).astype(np.uint8)
+    v, key0, lab0, _ = pack.pack_kernel(torch.from_numpy(img_np))
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3
+
+    def builder(variant, device=None, **opts):
+        tb = TransformBuilder.default().set_device(device or dev)
+        for setter, args in opts.items():
+            tb = getattr(tb, setter)(*args)
+        return getattr(tb, f"build_{variant}")()
+
+    out = mod.mesh_phases(types.SimpleNamespace(
+        dev=dev, gpu=mod.gpu_line(), to_dev=lambda a: torch.from_numpy(np.ascontiguousarray(a)),
+        median_ms=lambda fn, reps: timed(fn)[1], timed=timed, builder=builder,
+        ws=builder("segmenting"), v=v, key0=key0, lab0=lab0, img_np=img_np, dots=dots,
+    ))
+    print(out)
+    return 0
 
 
 if __name__ == "__main__":
