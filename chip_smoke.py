@@ -23,7 +23,10 @@ the card against the CPU; the native engine), then the mesh: the relax
 kernel's centre rectangle against its twin, ``set_mesh`` on a one-rank NCCL
 mesh and on a 2 x 2 gloo mesh of four spawned processes sharing the card
 (4096^2, both variants, every rank's labels against the single-device
-labels), and times the card.
+labels; the per-level API and the host loop with a hook and progress on
+golden_morph_v1, every relax call of the claims pass and every flood call
+of the level loop against the twins; a (2, 1, 2) batch mesh's
+``transform_batch``), and times the card.
 One line per phase; the line before the last is the kernel table as JSON,
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the run exits non-zero; without CUDA it exits non-zero at once.  Imports
@@ -83,7 +86,7 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-MESH_DEADLINE = 300.0  # seconds the ranks of the 2 x 2 mesh (phase 23) may take
+MESH_DEADLINE = 600.0  # seconds the ranks of the 2 x 2 mesh (phase 23) may take
 
 
 def max_err(xs, ys) -> int:
@@ -110,12 +113,135 @@ def held_mesh_calls(log: dict, keep_first: bool = False):
     return on_call
 
 
-def mesh_rank(rank: int, device: str, cases) -> dict:
+def held_flood_calls(log: dict, steps: int):
+    """An ``on_call`` for the mesh's level loop
+    (``parallel.tiled.MeshLevelStepper``): holds each flood call, plane and
+    flags, against the twin on the same inputs and ``steps``, and adds to
+    ``log``'s ``calls`` and ``err``."""
+    from rustronomy_watershed_tpu_torch.ops import flood_block
+
+    def on_call(v, src, dst, flags, lvl):
+        want = flood_block.flood_block_plain(v, src, lvl, steps)
+        log["err"] = max(log.get("err", 0), max_err((dst, flags), want))
+        log["calls"] = log.get("calls", 0) + 1
+
+    return on_call
+
+
+def sha(a) -> str:
+    return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def hook_digest(ctx):
+    """A hook's view in a few bytes: the level, the labels' digest and the
+    last seed."""
+    return ctx.water_level, sha(ctx.colours), ctx.seeds[-1] if ctx.seeds else None
+
+
+def level_refs(ws_of, img, seeds, variant: str) -> dict:
+    """The single device's per-level results of ``variant`` on ``img``,
+    digested as ``level_paths`` digests the mesh's; ``ws_of(variant,
+    **setters)`` builds on the card."""
+    rows = ws_of(variant).transform_to_list(img, seeds, counts_length=len(seeds) + 1)
+    return dict(list=([lvl for lvl, _ in rows], sha(np.stack([r for _, r in rows]))),
+                history=[(lvl, sha(p)) for lvl, p in ws_of(variant).transform_history(img, seeds)],
+                hooks=ws_of(variant, set_wlvl_hook=(hook_digest,)).transform_with_hook(img, seeds),
+                labels=sha(ws_of(variant).transform(img, seeds)))
+
+
+def level_paths(mesh, dev, img, seeds, variant: str) -> dict:
+    """The per-level API and the host loop of ``variant`` on ``mesh`` (phase
+    22 in the smoke's process, phase 23 on each rank): ``transform_to_list``
+    and ``transform_history`` through the compact route, with every relax
+    call of its tiled claims pass held against the twin; the host loop with
+    a hook and progress through the builder, its launch counts and wall;
+    and the same levels stepped on ``MeshLevelStepper`` with every flood
+    call held against the twin, its rounds a level and final labels."""
+    import contextlib
+    import io
+
+    import torch
+
+    from rustronomy_watershed_tpu_torch import _ext
+    from rustronomy_watershed_tpu_torch.ops.seeds import paint_seeds
+    from rustronomy_watershed_tpu_torch.parallel.tiled import MeshLevelStepper, _tiled_run
+    from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
+
+    def ws_of(**setters):
+        tb = TransformBuilder().set_device(dev).set_mesh(mesh)
+        for setter, args in setters.items():
+            getattr(tb, setter)(*args)
+        return getattr(tb, f"build_{variant}")()
+
+    def wall(fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    res, n = {}, len(seeds)
+    rows, res["list_ms"] = wall(lambda: ws_of().transform_to_list(img, seeds, counts_length=n + 1))
+    res["list"] = ([lvl for lvl, _ in rows], sha(np.stack([r for _, r in rows])))
+    snaps, res["history_ms"] = wall(lambda: ws_of().transform_history(img, seeds))
+    res["history"] = [(lvl, sha(p)) for lvl, p in snaps]
+    del rows, snaps
+    img_t = torch.from_numpy(np.ascontiguousarray(img)).to(dev)
+    lab_t = torch.from_numpy(paint_seeds(img.shape, seeds)).to(dev)
+    held = {}
+    _tiled_run(img_t, lab_t, mesh, n_labels=n, max_water_level=254, collect="claims", on_call=held_mesh_calls(held))
+    res["claims_held"] = held
+    hooked = ws_of(set_wlvl_hook=(hook_digest,), enable_progress=())
+    _ext.reset_launches()
+    bar = io.StringIO()
+    with contextlib.redirect_stderr(bar):
+        res["hooks"], res["loop_ms"] = wall(lambda: hooked.transform_with_hook(img, seeds))
+    res["loop_launches"], res["bar"] = dict(_ext.launches), bar.getvalue()
+    fheld = {}
+    stepper = MeshLevelStepper(mesh, n_labels=n, merging=variant == "merging", on_call=held_flood_calls(fheld, 4))
+    v_p, lab = stepper.prepare(img_t, lab_t)
+    rounds = []
+    for lvl in range(255):
+        lab, r = stepper.step(v_p, lab, lvl)
+        rounds.append(r)
+    res.update(flood_held=fheld, rounds=rounds, labels=sha(stepper.crop(lab)))
+    return res
+
+
+def mesh_flood_path(counts: dict) -> bool:
+    """Whether a mesh host loop's launch counts show the flood kernel and no
+    plain twin."""
+    from rustronomy_watershed_tpu_torch import _ext
+
+    return counts["flood"] > 0 and sum(counts[f"{k}_plain"] for k in _ext.KERNELS) == 0
+
+
+def check_levels(got: dict, want: dict, what: str, root: bool = True) -> None:
+    """``level_paths``'s results against ``level_refs``'s; the progress bar
+    on mesh rank 0 (``root``) alone."""
+    check(got["list"] == want["list"], f"{what}: transform_to_list == the single device's")
+    check(got["history"] == want["history"], f"{what}: transform_history == the single device's")
+    check(got["hooks"] == want["hooks"], f"{what}: the host loop's hook views == the single device's")
+    check(("water level 254/254" in got["bar"]) if root else got["bar"] == "",
+          f"{what}: {'the bar reached level 254' if root else 'no bar off mesh rank 0'}")
+    check(got["labels"] == want["labels"], f"{what}: MeshLevelStepper's labels == the single device's")
+    check(got["claims_held"].get("calls", 0) > 0 and got["claims_held"]["err"] == 0,
+          f"{what}: every relax call of the claims pass == twin on the same inputs and rectangle")
+    check(got["flood_held"]["calls"] == sum(got["rounds"]) and got["flood_held"]["err"] == 0,
+          f"{what}: every flood call of MeshLevelStepper == twin on the same inputs (planes and flags)")
+
+
+def mesh_rank(rank: int, device: str, cases, level_cases=(), batch=None) -> dict:
     """One rank of phase 23's 2 x 2 gloo mesh, a spawned process
     (``tests/torch_mesh.py::run_ranks``), computing its tile on ``device``.
     Per case ``(variant, image, seeds)``: every relax call of the mesh
     driver held against the twin, the labels' sha256, the rounds and tile
-    calls, the API transform's wall and its launch counts."""
+    calls, the API transform's wall and its launch counts.  Per level case
+    ``(variant, image, seeds)``: ``level_paths``.  ``batch``, ``(images,
+    seed lists)``: ``transform_batch`` on a (2, 1, 2) batch mesh, its
+    labels' digest and wall."""
     import torch
     import torch.distributed as dist
 
@@ -142,6 +268,20 @@ def mesh_rank(rank: int, device: str, cases) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
         res[variant] = dict(sha=hashlib.sha256(labels.tobytes()).hexdigest(), rounds=stats[0], runs=stats[1],
                             wall_ms=wall, launches=dict(_ext.launches), held=held)
+    for variant, field, seeds in level_cases:
+        res[("levels", variant)] = level_paths(mesh, dev, field, seeds, variant)
+    if batch is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        bmesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 1, 2), mesh_dim_names=("batch", "y", "x"))
+        imgs, seed_lists = batch
+        for variant in ("segmenting", "merging"):
+            wsb = getattr(TransformBuilder().set_device(dev).set_mesh(bmesh), f"build_{variant}")()
+            _ext.reset_launches()
+            t0 = time.perf_counter()
+            out = wsb.transform_batch(imgs, seed_lists)
+            res[("batch", variant)] = dict(sha=sha(out), wall_ms=(time.perf_counter() - t0) * 1e3,
+                                           launches=dict(_ext.launches))
     return res
 
 
@@ -157,14 +297,20 @@ def mesh_kernel_path(counts: dict) -> bool:
 def mesh_phases(c) -> dict:
     """Phases 21-23: the relax kernel's centre rectangle against its twin,
     then the port's mesh on the card (a one-rank NCCL mesh, then a 2 x 2
-    gloo mesh of four processes on the one card).  ``c`` holds what they
-    take from the earlier phases: the device and its line, helpers, the
-    segmenting builder ``ws``, phase 4's packed 4096^2 planes and the
-    4096^2 uniform and 10% NaN-dot fields.  Returns the relax_ctr row's
-    numbers: its launches on the 1 x 1 mesh's segmenting transform, its
-    error over every relax call of the mesh driver in phases 22 and 23
-    (against the twin on the same inputs), and its times and bound on the
-    1 x 1 mesh's first call (the padded 4112^2 planes, its rectangle)."""
+    gloo mesh of four processes on the one card, and a (2, 1, 2) gloo batch
+    mesh).  ``c`` holds what they take from the earlier phases: the device
+    and its line, helpers, the segmenting builder ``ws``, phase 4's packed
+    4096^2 planes, the 4096^2 uniform and 10% NaN-dot fields and
+    golden_morph_v1 with its seeds (the per-level API and the host loop:
+    1024^2 on the one-rank mesh, its 512^2 quadrants on four ranks).
+    Returns the relax_ctr row's numbers: its launches on the 1 x 1 mesh's
+    segmenting transform, its error over every relax call of the mesh
+    driver in phases 22 and 23 (the claims passes included; against the
+    twin on the same inputs), and its times and bound on the 1 x 1 mesh's
+    first call (the padded 4112^2 planes, its rectangle); and the flood
+    row's part: the error over every flood call of ``MeshLevelStepper`` in
+    both phases and the flood launches of the 1 x 1 mesh's segmenting host
+    loop."""
     import torch
 
     from rustronomy_watershed_tpu_torch import _ext
@@ -174,6 +320,7 @@ def mesh_phases(c) -> dict:
 
     dev, gpu, to_dev, median_ms, timed = c.dev, c.gpu, c.to_dev, c.median_ms, c.timed
     builder, ws, v, key0, lab0 = c.builder, c.ws, c.v, c.key0, c.lab0
+    pimg, pseeds, flood_err = c.pimg, c.pseeds, 0
     img_np, dots, s = c.img_np, c.dots, relax.DEFAULT_STEPS
     # -- 21: the relax kernel's centre rectangle against its twin -------------
     ctr_err = 0
@@ -266,6 +413,31 @@ def mesh_phases(c) -> dict:
                   f"flags); relax launches {counts['relax']} (all with the centre rectangle); API wall ms (median of "
                   f"3 in turns) single device {np.median(walls['single device']):.1f}, 1x1 mesh "
                   f"{np.median(walls['1x1 mesh']):.1f}; runs {walls}; gpu={gpu}")
+        # The per-level API and the host loop on the one-rank mesh, golden_morph_v1.
+        for variant in ("segmenting", "merging"):
+            want = level_refs(builder, pimg, pseeds, variant)
+            single = builder(variant)
+            list_1 = timed(lambda: single.transform_to_list(pimg, pseeds, counts_length=len(pseeds) + 1))[1]
+            hist_1 = timed(lambda: single.transform_history(pimg, pseeds))[1]
+            got = level_paths(mesh1, dev, pimg, pseeds, variant)
+            check_levels(got, want, f"1x1 NCCL mesh {variant} golden_morph_v1 {pimg.shape}")
+            check(mesh_flood_path(got["loop_launches"]), f"the 1x1 mesh's host loop ({variant}) launched the flood "
+                  "kernel and no twin")
+            mesh_err = max(mesh_err, got["claims_held"]["err"])
+            flood_err = max(flood_err, got["flood_held"]["err"])
+            if variant == "segmenting":
+                flood_launches = got["loop_launches"]["flood"]
+            n_lv = len(got["rounds"])
+            print(f"[22 mesh 1x1 levels] golden_morph_v1 {pimg.shape} {variant}: transform_to_list, transform_history "
+                  f"(compact route; {got['claims_held']['calls']} relax calls of the claims pass, each bit-equal to the "
+                  f"twin) and the host loop with a hook and progress == the single device; MeshLevelStepper's "
+                  f"{got['flood_held']['calls']} flood calls each bit-equal to the twin; the host loop launched flood "
+                  f"{got['loop_launches']['flood']} times; rounds a level {sum(got['rounds']) / n_lv:.2f} (max "
+                  f"{max(got['rounds'])}); gpu={gpu}")
+            print(f"[22 time] golden_morph_v1 {pimg.shape} {variant} API wall ms: to_list 1x1 mesh "
+                  f"{got['list_ms']:.1f} (single device {list_1:.1f}), history {got['history_ms']:.1f} (single device "
+                  f"{hist_1:.1f}); host loop with hook and progress {got['loop_ms']:.1f}, "
+                  f"{got['loop_ms'] / n_lv:.3f} ms a level; gpu={gpu}")
     finally:
         dist.destroy_process_group()
 
@@ -274,8 +446,17 @@ def mesh_phases(c) -> dict:
 
     _ext.lib()  # built here once; the ranks load it
     cases = [(variant, field, mesh_seeds[variant]) for variant, _, field in mesh_cases]
+    # The per-level paths on golden_morph_v1's top-left quadrant; the batch
+    # mesh on its four quadrants.
+    qh, qw = pimg.shape[0] // 2, pimg.shape[1] // 2
+    quads = np.stack([pimg[y : y + qh, x : x + qw] for y in (0, qh) for x in (0, qw)])
+    quad_seeds = [ws.find_local_minima(q) for q in quads]
+    level_cases = [(variant, quads[0], quad_seeds[0]) for variant in ("segmenting", "merging")]
+    level_want = {variant: level_refs(builder, quads[0], quad_seeds[0], variant) for variant in ("segmenting", "merging")}
+    batch_want = {variant: sha(builder(variant).transform_batch(quads, quad_seeds)) for variant in ("segmenting", "merging")}
     t0 = time.perf_counter()
-    ranks_out = run_ranks(mesh_rank, 4, mesh_root, str(dev), cases, deadline=MESH_DEADLINE)
+    ranks_out = run_ranks(mesh_rank, 4, mesh_root, str(dev), cases, level_cases, (quads, quad_seeds),
+                          deadline=MESH_DEADLINE)
     spawn_s = time.perf_counter() - t0
     for variant, label, _ in mesh_cases:
         want_sha = hashlib.sha256(single_labels[variant].tobytes()).hexdigest()
@@ -293,7 +474,33 @@ def mesh_phases(c) -> dict:
               f"calls {[p['held']['calls'] for p in per]} bit-equal to the twin; relax launches per rank "
               f"{[p['launches']['relax'] for p in per]}; API wall ms per rank {[round(p['wall_ms'], 1) for p in per]}; "
               f"gpu={gpu}")
-    print(f"[23 mesh 2x2] spawn, import, both variants twice and exit: {spawn_s:.1f} s")
+    for variant in ("segmenting", "merging"):
+        per = [r[("levels", variant)] for r in ranks_out]
+        for rank, got in enumerate(per):
+            check_levels(got, level_want[variant], f"2x2 gloo mesh rank {rank} {variant} {quads[0].shape}", rank == 0)
+            check(mesh_flood_path(got["loop_launches"]), f"rank {rank}'s host loop ({variant}) launched the flood "
+                  "kernel and no twin")
+        mesh_err = max([mesh_err] + [p["claims_held"]["err"] for p in per])
+        flood_err = max([flood_err] + [p["flood_held"]["err"] for p in per])
+        n_lv = len(per[0]["rounds"])
+        print(f"[23 mesh 2x2 levels] golden_morph_v1 quadrant {quads[0].shape} {variant}: on every rank to_list, "
+              f"history and the host loop with a hook and progress == the single device, MeshLevelStepper's labels "
+              f"too; relax calls of the claims pass per rank {[p['claims_held']['calls'] for p in per]} and flood "
+              f"calls {[p['flood_held']['calls'] for p in per]}, each bit-equal to the twin; rounds a level "
+              f"{sum(per[0]['rounds']) / n_lv:.2f}; gpu={gpu}")
+        print(f"[23 time] quadrant {quads[0].shape} {variant} wall ms per rank: to_list "
+              f"{[round(p['list_ms'], 1) for p in per]}, history {[round(p['history_ms'], 1) for p in per]}, host "
+              f"loop {[round(p['loop_ms'], 1) for p in per]} ({per[0]['loop_ms'] / n_lv:.3f} ms a level on rank 0); "
+              f"gpu={gpu}")
+        bat = [r[("batch", variant)] for r in ranks_out]
+        check(all(b["sha"] == batch_want[variant] for b in bat), f"(2, 1, 2) batch mesh {variant} transform_batch of "
+              "4 quadrants == the single device's, on every rank")
+        check(all(mesh_kernel_path(b["launches"]) for b in bat), f"the batch mesh ({variant}) launched the relax "
+              "kernel with its centre rectangle and no twin")
+        print(f"[23 mesh batch] (2, 1, 2) gloo batch mesh, 4 x {quads[0].shape} {variant} transform_batch == the single "
+              f"device's on every rank; relax launches per rank {[b['launches']['relax'] for b in bat]}; wall ms "
+              f"per rank {[round(b['wall_ms'], 1) for b in bat]}; gpu={gpu}")
+    print(f"[23 mesh 2x2] spawn, import, both variants twice, the level paths, the batch mesh and exit: {spawn_s:.1f} s")
     shutil.rmtree(mesh_root)
 
     # The relax_ctr row's times: the 1x1 mesh's first call, at its shape.
@@ -306,7 +513,8 @@ def mesh_phases(c) -> dict:
     print(f"[23 time] relax on the 1x1 mesh's first call ({tuple(k1.shape)} planes, rectangle {rect1}, {rect1[0]} "
           f"sweeps): kernel {ctr_ms:.4f} ms (median of 20, two turns), plain {ctr_plain_ms:.3f} ms, bound "
           f"{ctr_bound[0]:.4f} ms ({ctr_bound[1]}); gpu={gpu}")
-    return dict(launches=mesh_counts["relax_ctr"], err=mesh_err, ms=ctr_ms, plain_ms=ctr_plain_ms, bound=ctr_bound)
+    return dict(launches=mesh_counts["relax_ctr"], err=mesh_err, ms=ctr_ms, plain_ms=ctr_plain_ms, bound=ctr_bound,
+                flood_err=flood_err, flood_launches=flood_launches)
 
 
 def main() -> int:
@@ -1474,7 +1682,7 @@ def main() -> int:
 
     mesh = mesh_phases(types.SimpleNamespace(
         dev=dev, gpu=gpu, to_dev=to_dev, median_ms=median_ms, timed=timed,
-        builder=builder, ws=ws, v=v, key0=key0, lab0=lab0, img_np=img_np, dots=dots,
+        builder=builder, ws=ws, v=v, key0=key0, lab0=lab0, img_np=img_np, dots=dots, pimg=pimg, pseeds=pseeds,
     ))
 
     # Bytes each function must move at 4096^2 (each input read once, each
@@ -1501,7 +1709,8 @@ def main() -> int:
         ("coarse_broadcast", "csrc/coarse_broadcast.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:1185",
          dot_counts["coarse_broadcast"], coarse_err["coarse_broadcast"], bcast_ms, bcast_plain_ms),
         ("flood", "csrc/flood.cu", "rustronomy_watershed_tpu/ops/pallas_flood.py:106",
-         level_runs[(f"uniform {SIDE}^2", "segmenting")]["flood"], flood_err, flood_ms, flood_plain_ms),
+         level_runs[(f"uniform {SIDE}^2", "segmenting")]["flood"] + mesh["flood_launches"],
+         max(flood_err, mesh["flood_err"]), flood_ms, flood_plain_ms),
         ("relax2d", "csrc/relax.cu", "rustronomy_watershed_tpu/ops/pallas_relax.py:920",
          big_runs[("10% dots", "merging")]["relax"], relax2d_err, *big_ms["relax2d"]),
         ("fwd_v", "csrc/scan_round.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:129",

@@ -2,18 +2,15 @@
 
 Counterpart of ``rustronomy_watershed_tpu.builder`` (the reference's
 ``TransformBuilder``, src/lib.rs:864-1065): the same
-chainable setters and ``BuildErr`` validation, plus ``set_device``.  The
-mesh serves ``transform``; what it does not serve yet (per-level
-statistics, the host-stepped loop, checkpoints, a batch dim) is refused with
-NotImplementedError naming the ROADMAP item that brings it.
+chainable setters and ``BuildErr`` validation, plus ``set_device``.
 """
 
 from __future__ import annotations
 
 from .constants import ALWAYS_FILL, NORMAL_MAX
-from .models.base import _not_yet
 from .models.merging import MergingWatershed
 from .models.segmenting import SegmentingWatershed
+from .parallel.halo import MESH_DIMS
 
 
 
@@ -148,29 +145,45 @@ class TransformBuilder:
         return self
 
     def set_mesh(self, mesh) -> "TransformBuilder":
-        """Tile ``transform`` over a ``torch.distributed`` DeviceMesh with
-        the dims ``("y", "x")`` (parallel/tiled.py).
+        """Tile every method over a ``torch.distributed`` DeviceMesh with the
+        dims ``("y", "x")`` or ``("batch", "y", "x")`` (parallel/tiled.py).
 
         SPMD: JAX runs one controller over every device, torch.distributed
         one process per rank.  So every rank builds the same builder and
-        calls ``transform(img, seeds)`` with the full image; each rank pads
-        and slices its own tile (row-major rank order over the mesh) and
-        relaxes it on ``set_device``'s device, exchanging halos with its
-        neighbour ranks; every rank gets the full labels back by an
-        all-gather.  The labels equal the single-device labels on every
-        rank, and no rank is a driver.  The mesh supplies the ranks and the
-        process groups (gloo or NCCL; gloo strips of tiles on the card go
-        through host memory); the builder's device says where the tiles
-        compute.
+        calls the same method with the full image; each rank pads and
+        slices its own tile (row-major rank order over the mesh) and
+        computes it on ``set_device``'s device, exchanging halos with its
+        neighbour ranks; every rank gets the full result back.  The results
+        equal the single-device results on every rank, and no rank is a
+        driver.  The mesh supplies the ranks and the process groups (gloo or
+        NCCL; gloo strips of tiles on the card go through host memory); the
+        builder's device says where the tiles compute.
 
-        As in the JAX package, the mesh runs its tiled relax engine whatever
-        the backend and sweep function, ``backend('native')`` ignores the
-        mesh, and ``transform_batch`` ignores a mesh without a ``"batch"``
-        dim.  Not
-        served yet (NotImplementedError, ROADMAP queue 1 item 13 (b)):
-        ``transform_to_list``, ``transform_history``, hooks, plots,
-        progress, debug, checkpoints and a ``"batch"`` dim.  The random
-        tie-break is single-device (ValueError)."""
+        What a mesh serves, as in the JAX package:
+
+        - ``transform``: the tiled packed relax engine (and the mesh merge);
+        - ``transform_to_list``, ``transform_history`` and pure observers
+          (hooks, plots): one tiled relax pass's claim planes, rebuilt on
+          the host as on one device;
+        - hooks, plots, progress, debug and ``set_checkpoint``: the
+          host-stepped level loop on ``MeshLevelStepper`` (the flood kernel
+          and the mesh merge a level); a progress tick and a debug loop per
+          halo-exchange round, debug timing whole levels; per-level
+          snapshots of the cropped domain;
+        - ``transform_batch`` over a ``"batch"`` dim: the images split over
+          its batch groups (B divisible by its size), each a ``(y, x)``
+          sub-mesh; without one, ``transform_batch`` ignores the mesh.
+
+        The SPMD rules of the host loop: hooks run on every rank with the
+        same views, and every rank returns their results; plots, snapshot
+        files, the progress bar and debug prints come from mesh rank 0
+        (every coordinate 0) alone; every rank reads a resume, and after
+        each save every rank waits until it is on disk.
+
+        The mesh runs its own engines whatever the backend and sweep
+        function; ``backend('native')`` ignores the mesh for ``transform``
+        and ``transform_to_list``.  The random tie-break is single-device
+        (ValueError)."""
         self.mesh = mesh
         return self
 
@@ -194,14 +207,8 @@ class TransformBuilder:
                 raise ValueError("set_tie_break('random') is single-device")
         if self.mesh is not None:
             names = tuple(getattr(self.mesh, "mesh_dim_names", None) or ())
-            if "batch" in names:
-                raise _not_yet("set_mesh with a 'batch' dim", "13 (b)")
-            if names != ("y", "x"):
-                raise ValueError(f"set_mesh takes a torch.distributed DeviceMesh with the dims ('y', 'x'), got {names}")
-            if self.wlvl_hook is not None or self.plot_path is not None or self.progress or self.debug:
-                raise _not_yet("set_mesh with hooks, plots, progress or debug (the host-stepped level loop)", "13 (b)")
-            if self.checkpoint_dir is not None:
-                raise _not_yet("set_mesh with set_checkpoint", "13 (b)")
+            if names not in MESH_DIMS:
+                raise ValueError(f"set_mesh takes a torch.distributed DeviceMesh with the dims {MESH_DIMS}, got {names}")
         if self.backend == "relax_pallas":
             raise NotImplementedError(
                 "backend 'relax_pallas' is the packed engine, which the port "

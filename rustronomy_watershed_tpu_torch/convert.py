@@ -47,15 +47,11 @@ def planes_to_jax_layout(v, key, lab, tile: int, steps: int, *, unclaimed: int =
 
 def builder_from_jax(tb, device="cuda"):
     """Port TransformBuilder with the JAX builder's options (the tie-break
-    and its seed, the checkpoint settings and every backend included);
-    raises NotImplementedError for a mesh, whose translation from a JAX
-    ``Mesh`` into a torch.distributed DeviceMesh is not ported yet, and for
-    a sweep function, which the JAX builder holds as a JAX function."""
+    and its seed, the checkpoint settings, every backend and the mesh
+    (``mesh_from_jax``) included); raises NotImplementedError for a sweep
+    function, which the JAX builder holds as a JAX function."""
     from .builder import TransformBuilder
-    from .models.base import _not_yet
 
-    if tb.mesh is not None:
-        raise _not_yet("translating a JAX Mesh into a DeviceMesh (builder_from_jax)", "13 (b)")
     if tb.sweep_fn is not None:
         raise NotImplementedError(
             "the JAX builder's set_sweep_impl holds a JAX sweep function, which "
@@ -63,6 +59,8 @@ def builder_from_jax(tb, device="cuda"):
             "(set_sweep_impl, e.g. ops.flood_block.make_sweep_fn())"
         )
     out = TransformBuilder().set_max_water_lvl(tb.max_water_level).set_device(device)
+    if tb.mesh is not None:
+        out.set_mesh(mesh_from_jax(tb.mesh, device))
     if tb.edge_correction:
         out.enable_edge_correction()
     # Copy the remaining options verbatim so build_* reports any that the
@@ -75,3 +73,25 @@ def builder_from_jax(tb, device="cuda"):
         setattr(out, name, getattr(tb, name))
     out._validate()
     return out
+
+
+def mesh_from_jax(jax_mesh, device="cuda"):
+    """A torch.distributed DeviceMesh of a JAX ``Mesh``'s shape and axis
+    names over the initialised world, read from its ``axis_names`` and
+    ``devices.shape`` alone (no JAX import): ``init_device_mesh`` with the
+    device type of ``device`` (``"cuda"``: NCCL; ``"cpu"``: gloo).  Raises
+    ValueError when no process group is initialised or when the world's
+    size differs from the mesh's, or for an object that is no mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not hasattr(jax_mesh, "axis_names") or not hasattr(getattr(jax_mesh, "devices", None), "shape"):
+        raise ValueError(f"a JAX Mesh (axis_names, devices) is needed, got {type(jax_mesh).__name__}")
+    names = tuple(str(n) for n in jax_mesh.axis_names)
+    shape = tuple(int(n) for n in jax_mesh.devices.shape)
+    size = int(np.prod(shape))
+    world = dist.get_world_size() if dist.is_initialized() else None
+    if world != size:
+        have = "no process group is initialised" if world is None else f"the world has {world} ranks"
+        raise ValueError(f"the JAX mesh {dict(zip(names, shape))} has {size} devices, but {have}")
+    return init_device_mesh(torch.device(device).type, shape, mesh_dim_names=names)

@@ -17,8 +17,12 @@ checkpoints step the levels from the host, as the reference does.  The
 random tie-break (``set_tie_break('random', seed)``) runs the plain level
 sweep with ``flood_sweep_random`` on a uniform plane drawn from the seed.
 Checkpointing alone on the packed engine snapshots its relax planes
-(ops/ckpt_relax.py).  Under ``set_mesh``, ``transform`` runs tiled over
-the mesh (parallel/tiled.py, SPMD: every rank calls it with the full image).
+(ops/ckpt_relax.py).  Under ``set_mesh`` every method runs tiled over the
+mesh (parallel/tiled.py, SPMD: every rank calls it with the full image and
+gets the full result): ``transform`` on the tiled packed engine; the
+per-level API and pure observers from one tiled pass's claim planes and
+the host tails; the host-stepped loop on ``MeshLevelStepper``; and
+``transform_batch`` over a ``"batch"`` dim.
 """
 
 from __future__ import annotations
@@ -39,7 +43,9 @@ from ..ops.flood import flood_candidates, flood_candidates_random, flood_sweep_r
 from ..ops.level_driver import _flood_step, level_step, level_step_counted, run_levels_impl
 from ..ops.ckpt_relax import ckpt_transform
 from ..ops.merge import merge_touching
-from ..ops.merge_curve import relax_history, relax_merging_sizes
+from ..ops.merge_curve import (
+    _fetch_planes, iter_history_from_planes, merge_edges, merged_curve_host, relax_history, relax_merging_sizes,
+)
 from ..ops.preprocess import pre_process
 from ..ops.seeds import local_extrema_mask, paint_seeds, seed_array
 from ..parity.native import native_transform
@@ -276,6 +282,7 @@ class _WatershedBase(WatershedUtils):
             and not self.progress
             and not self.debug
             and self.sweep_fn is None
+            and self.mesh is None
             and self._resolved_backend() == "packed"
         )
 
@@ -314,9 +321,34 @@ class _WatershedBase(WatershedUtils):
             labels = run_levels_impl(img, labels0, backend="relax", device=img.device, **kw)
         return labels
 
-    def _no_mesh(self, what: str):
-        if self.mesh is not None:
-            raise _not_yet(f"set_mesh with {what}", "13 (b)")
+    def _mesh_planes(self, img, labels0, *, n_labels: int):
+        """The compact planes of one tiled relax pass (``collect='claims'``,
+        segmenting labels) as host arrays ``(labels, claim levels as u8,
+        lo, hi, act)``: the merge edges for the merging variant, none for
+        segmenting (models/base.py:689-736 of the JAX package).  None when
+        the packed key's d field saturated somewhere on the mesh: it warns,
+        and the caller runs the single device's exact engine."""
+        from ..parallel.tiled import _tiled_run
+
+        mwl = self.max_water_level
+        (labels, claim), _, starved = _tiled_run(
+            img, labels0, self.mesh, n_labels=n_labels, max_water_level=mwl, merging=False, collect="claims"
+        )
+        if starved:
+            _warn_saturation()
+            return None
+        if self._merging:
+            edges = merge_edges(labels, claim, max_water_level=mwl)[:3]
+        else:
+            edges = (torch.zeros((0,), dtype=torch.int32, device=img.device),) * 3
+        return _fetch_planes(labels, claim.clamp(0, mwl + 1).to(torch.uint8), edges)
+
+    def _planes_history(self, planes, n_labels: int):
+        """``iter_history_from_planes`` of ``_mesh_planes``'s planes."""
+        labels_np, lv8_np, lo, hi, act = planes
+        if self._merging:
+            return iter_history_from_planes(labels_np, lv8_np, self.max_water_level, lo, hi, act, n_labels=n_labels)
+        return iter_history_from_planes(labels_np, lv8_np, self.max_water_level)
 
     def _native(self, input_img, seeds, **kw):
         return native_transform(
@@ -332,10 +364,6 @@ class _WatershedBase(WatershedUtils):
         if self.backend == "native" and not self._needs_host_loop():
             out = self._native(input_img, seeds).astype(np.int32)
             return torch.from_numpy(out).to(_ext.resolve_device(self.device)) if device_output else out
-        if self.mesh is not None:
-            img, labels0 = self._prepare(input_img, seeds)
-            labels = self._run_mesh(img, labels0, n_labels=len(seeds))
-            return labels if device_output else labels.cpu().numpy()
         if self._ckpt_fast_path():
             img, labels0 = self._prepare(input_img, seeds)
             ckpt = TransformCheckpointer(self.checkpoint_dir, self.checkpoint_every)
@@ -348,6 +376,9 @@ class _WatershedBase(WatershedUtils):
             out = clone._host_stepped(input_img, seeds)[-1]
             return torch.from_numpy(out).to(_ext.resolve_device(self.device)) if device_output else out
         img, labels0 = self._prepare(input_img, seeds)
+        if self.mesh is not None:
+            labels = self._run_mesh(img, labels0, n_labels=len(seeds))
+            return labels if device_output else labels.cpu().numpy()
         labels = self._run(img, labels0, n_labels=len(seeds))
         return labels if device_output else labels.cpu().numpy()
 
@@ -373,7 +404,6 @@ class _WatershedBase(WatershedUtils):
         reference's ``n_pixels + 1`` rows (src/lib.rs:630, SURVEY.md Q10);
         pass e.g. ``len(seeds) + 1`` for compact rows.  Rows of a result
         over 64 MB are views of one block unless ``copy=True``."""
-        self._no_mesh("transform_to_list")
         if self.backend == "native" and not self._needs_host_loop():
             _, sizes = self._native(input_img, seeds, with_sizes=True)
             if counts_length is None:
@@ -399,6 +429,15 @@ class _WatershedBase(WatershedUtils):
             counts_length = img.numel() + 1
         backend = self._resolved_backend()
         kw = dict(n_labels=len(seeds), max_water_level=self.max_water_level, merging=self._merging)
+        if self.mesh is not None:
+            # One tiled relax pass and the host tail (models/base.py:689-736
+            # of the JAX package); a saturated pass runs the exact engine.
+            planes = self._mesh_planes(img, labels0, n_labels=len(seeds))
+            if planes is not None:
+                sizes = merged_curve_host(*planes[:2], len(seeds), self.max_water_level, *planes[2:],
+                                          out_width=counts_length)
+                return _expand_rows(sizes, counts_length, self.max_water_level, copy)
+            backend = "relax"
         if backend in ("packed", "relax"):
             # One relaxation pass, the compact planes to the host, and the
             # host tail (ops/merge_curve.py).
@@ -431,9 +470,8 @@ class _WatershedBase(WatershedUtils):
         memory, as in the reference (src/lib.rs:1229-1232).  The level sweep
         stacks them on the card first, unless the stack would not fit; then
         the host loop collects one plane per level."""
-        self._no_mesh("transform_history")
         backend = self._resolved_backend()
-        compact = backend in ("packed", "relax")
+        compact = self.mesh is not None or backend in ("packed", "relax")
         route_host = self._needs_host_loop() or not (
             compact or self._history_stack_fits(np.shape(input_img))
         )
@@ -443,6 +481,13 @@ class _WatershedBase(WatershedUtils):
             )._host_stepped(input_img, seeds)
         img, labels0 = self._prepare(input_img, seeds)
         kw = dict(n_labels=len(seeds), max_water_level=self.max_water_level, merging=self._merging)
+        if self.mesh is not None:
+            # The same tiled pass as transform_to_list, every snapshot
+            # rebuilt on the host (models/base.py:814-855 of the JAX package).
+            planes = self._mesh_planes(img, labels0, n_labels=len(seeds))
+            if planes is not None:
+                return list(self._planes_history(planes, len(seeds)))
+            backend = "relax"
         if compact:
             snaps, starved = relax_history(img, labels0, backend=backend, device=img.device, **kw)
             if starved:
@@ -474,12 +519,20 @@ class _WatershedBase(WatershedUtils):
         (checked here on the host), declares the stack to the driver for the
         per-image broadcast shortcut (models/base.py:491-582 of the JAX
         package).  The level sweeps run image by image.
+
+        Under a mesh with a ``"batch"`` dim the images split over its batch
+        groups (B divisible by its size), each group's ``(y, x)`` sub-mesh
+        transforms its images one after another, and every rank gets the
+        whole stack (models/base.py:477-489 of the JAX package).
         """
         imgs = np.asarray(input_imgs, dtype=np.uint8)
         if imgs.ndim != 3:
             raise ValueError("transform_batch expects (B, H, W)")
         if len(seeds_list) != imgs.shape[0]:
             raise ValueError("one seed list per image required")
+        if self.mesh is not None and "batch" in tuple(self.mesh.mesh_dim_names or ()):
+            out = self._mesh_batch(imgs, seeds_list)
+            return out if device_output else out.cpu().numpy()
         backend = self._resolved_backend()
         if backend in ("flood", "sweep"):
             runs = []
@@ -514,6 +567,28 @@ class _WatershedBase(WatershedUtils):
         out = self._run(img, lab, **kw).reshape(b, hs, w)[:, :h]
         return out if device_output else out.cpu().numpy()
 
+    def _mesh_batch(self, imgs, seeds_list):
+        """``transform_batch`` over the mesh's ``"batch"`` dim
+        (``parallel.tiled._tiled_batch``); an image whose pass saturated
+        the packed key's d field is re-run on the exact engine, on every
+        rank."""
+        from ..parallel.tiled import _tiled_batch
+
+        if self.edge_correction:
+            imgs = np.pad(imgs, ((0, 0), (1, 1), (1, 1)), constant_values=ALWAYS_FILL)
+        shape = imgs.shape[1:]
+        labels0 = np.stack([paint_seeds(shape, seed_array(s)) for s in seeds_list])
+        dev = _ext.resolve_device(self.device)
+        img_t, lab_t = torch.from_numpy(imgs).to(dev), torch.from_numpy(labels0).to(dev)
+        kw = dict(n_labels=max((len(s) for s in seeds_list), default=0), max_water_level=self.max_water_level,
+                  merging=self._merging)
+        out, starved = _tiled_batch(img_t, lab_t, self.mesh, backend="packed", **kw)
+        if starved.any():
+            _warn_saturation()
+            for i in np.flatnonzero(starved):
+                out[i] = run_levels_impl(img_t[i], lab_t[i], backend="relax", device=dev, **kw)
+        return out
+
     # -- per-level observers: replay or the host-stepped loop ------------------
 
     def _fast_observer_ok(self) -> bool:
@@ -523,13 +598,18 @@ class _WatershedBase(WatershedUtils):
         (split-phase timers), per-level checkpoints (the saves are the
         recovery points) and a custom sweep interact with the stepping
         itself and run the real loop, as do the random tie-break and the
-        native backend, which resolve to the level sweep."""
+        native backend, which resolve to the level sweep.  A mesh replays
+        from one tiled pass's planes whatever the backend but the native
+        one, as the JAX package's does (models/base.py:912)."""
         return (
             not self.debug
             and not self.progress
             and self.checkpoint_dir is None
             and self.sweep_fn is None
-            and self._resolved_backend() in ("packed", "relax")
+            and (
+                self._resolved_backend() in ("packed", "relax")
+                or (self.mesh is not None and self.backend != "native")
+            )
         )
 
     def _seed_colours(self, seeds):
@@ -545,15 +625,22 @@ class _WatershedBase(WatershedUtils):
             n_labels=len(seeds), max_water_level=self.max_water_level,
             merging=self._merging, as_iter=True, device=img.device,
         )
-        snaps, starved = relax_history(img, labels0, backend=backend, **kw)
-        if starved:
-            _warn_saturation()
-            snaps, _ = relax_history(img, labels0, backend="relax", **kw)
+        planes = self._mesh_planes(img, labels0, n_labels=len(seeds)) if self.mesh is not None else None
+        if planes is not None:
+            snaps = self._planes_history(planes, len(seeds))
+        elif self.mesh is not None:
+            snaps, _ = relax_history(img, labels0, backend="relax", **kw)  # a saturated mesh pass
+        else:
+            snaps, starved = relax_history(img, labels0, backend=backend, **kw)
+            if starved:
+                _warn_saturation()
+                snaps, _ = relax_history(img, labels0, backend="relax", **kw)
         seed_colours = self._seed_colours(seeds)
         img_np = img.cpu().numpy()
         results = []
+        root = self._root()
         for lvl, labels_np in snaps:
-            if self.plot_path is not None:
+            if self.plot_path is not None and root:
                 self._plot_level(labels_np, lvl)
             if self.wlvl_hook is not None:
                 results.append(self.wlvl_hook(HookCtx(
@@ -561,6 +648,15 @@ class _WatershedBase(WatershedUtils):
                     image=img_np, colours=labels_np, seeds=seed_colours,
                 )))
         return results
+
+    def _root(self) -> bool:
+        """Whether this process writes plots and checkpoints and prints:
+        always on one device, mesh rank 0 alone under a mesh."""
+        if self.mesh is None:
+            return True
+        from ..parallel.tiled import mesh_root
+
+        return mesh_root(self.mesh)
 
     def _host_stepped(self, input_img, seeds) -> list:
         """The reference's per-level loop stepped from the host
@@ -571,7 +667,15 @@ class _WatershedBase(WatershedUtils):
         a checkpoint directory the labels are saved every
         ``checkpoint_every`` levels, and a run resumes from the newest
         snapshot of its fingerprint at the level after it (a snapshot of
-        the last level re-runs that level, so its hooks still fire)."""
+        the last level re-runs that level, so its hooks still fire).
+
+        Under a mesh the levels run on ``MeshLevelStepper`` (whatever the
+        backend and sweep function): a tick and a debug ``loop`` per
+        halo-exchange round, debug timing whole levels; the checkpoints hold
+        the cropped domain and a resume re-embeds it.  Hooks run on every
+        rank; plots, snapshot files, the bar and debug prints come from
+        mesh rank 0, and every rank waits after a save until it is on
+        disk."""
         if self._fast_observer_ok():
             return self._replayed_observers(input_img, seeds)
         img, labels = self._prepare(input_img, seeds)
@@ -579,6 +683,7 @@ class _WatershedBase(WatershedUtils):
         n_labels = len(seeds)
         seed_colours = self._seed_colours(seeds)
         img_np = img.cpu().numpy()
+        root = self._root()
         ckpt, start_lvl = None, 0
         if self.checkpoint_dir is not None:
             ckpt = TransformCheckpointer(self.checkpoint_dir, self.checkpoint_every)
@@ -591,7 +696,16 @@ class _WatershedBase(WatershedUtils):
                 start_lvl = min(latest[0] + 1, self.max_water_level)
                 labels = torch.from_numpy(latest[1]).to(dev)
         sweep_fn = self._effective_sweep_fn(img.shape)
-        if self.debug:
+        stepper = None
+        if self.mesh is not None:
+            from ..parallel.tiled import MeshLevelStepper, mesh_barrier
+
+            stepper = MeshLevelStepper(self.mesh, n_labels=n_labels, merging=self._merging)
+            img_t, labels = stepper.prepare(img, labels)
+
+            def step(lab, lvl):
+                return stepper.step(img_t, lab, lvl)
+        elif self.debug:
             cand_fn = flood_candidates if self.tie_break != "random" else partial(
                 flood_candidates_random, u=self._uniform_plane(img.shape)
             )
@@ -603,8 +717,8 @@ class _WatershedBase(WatershedUtils):
         else:
             def step(lab, lvl):
                 return level_step(img, lab, lvl, merging=self._merging, n_labels=n_labels, sweep_fn=sweep_fn)
-        bar = ProgressBar(self.max_water_level) if self.progress else None
-        if self.debug:
+        bar = ProgressBar(self.max_water_level) if self.progress and root else None
+        if self.debug and root:
             # The reference prints the initial lake count (src/lib.rs:1371-1372).
             print(f"starting with {len(seeds) + 1} lakes")
 
@@ -612,7 +726,20 @@ class _WatershedBase(WatershedUtils):
         for lvl in range(start_lvl, self.max_water_level + 1):
             perf = PerfReport() if self.debug else None
             t_level = time.perf_counter()
-            if self.debug:
+            if stepper is not None:
+                # A whole level a step; a tick and a debug loop per
+                # halo-exchange round (models/base.py:1108-1121 of the JAX
+                # package).
+                t0 = time.perf_counter()
+                labels, loops = step(labels, lvl)
+                _sync(dev)
+                if perf is not None:
+                    perf.loops = loops
+                    perf.big_iter_ms.append(int((time.perf_counter() - t0) * 1e3))
+                if bar is not None:
+                    for _ in range(loops):
+                        bar.tick()
+            elif self.debug:
                 # Split phases with timers and a progress tick per colouring
                 # iteration, like the reference's 'debug' feature
                 # (src/lib.rs:1379-1438): one host read per sweep.
@@ -645,10 +772,14 @@ class _WatershedBase(WatershedUtils):
             else:
                 labels = step(labels, lvl)
 
-            labels_np = labels.cpu().numpy()
+            labels_np = stepper.crop(labels) if stepper is not None else labels.cpu().numpy()
             if ckpt is not None:
-                ckpt.maybe_save(lvl, labels_np, fp)
-            if self.plot_path is not None:
+                if root:
+                    ckpt.maybe_save(lvl, labels_np, fp)
+                if stepper is not None and lvl % ckpt.every == 0:
+                    # No rank goes on before the snapshot is on disk.
+                    mesh_barrier(self.mesh, dev)
+            if self.plot_path is not None and root:
                 self._plot_level(labels_np, lvl)
             if bar is not None:
                 bar.inc()
@@ -663,7 +794,7 @@ class _WatershedBase(WatershedUtils):
                     # The reference declares lake_count_ms but never writes
                     # it (src/lib.rs:649, :682); the hook time fills it here.
                     perf.lake_count_ms = int((time.perf_counter() - t0) * 1e3)
-            if perf is not None:
+            if perf is not None and root:
                 perf.total_ms = int((time.perf_counter() - t_level) * 1e3)
                 print(perf)
         if bar is not None:

@@ -6,6 +6,8 @@ between neighbour devices with ``lax.ppermute``; here the mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` with dims ``"y"`` and ``"x"``,
 one process per rank, and the strips move by point-to-point
 ``batch_isend_irecv`` on the mesh's ``"y"`` and ``"x"`` process groups.
+A leading ``"batch"`` dim makes each batch index a ``(y, x)`` sub-mesh of
+its own: the strips and reductions stay inside it.
 
 One Jacobi sweep moves information one 4-connected pixel, so a k-px halo
 lets a rank run k local sweeps per exchange (parallel/tiled.py).  Corners
@@ -28,17 +30,31 @@ import torch.distributed as dist
 _TO_NEXT, _TO_PREV = 1, 2
 
 
+MESH_DIMS = (("y", "x"), ("batch", "y", "x"))
+
+
 def mesh_layout(mesh) -> tuple[int, int, int, int]:
     """``(ny, nx, iy, ix)``: the mesh's extent along ``"y"`` and ``"x"`` and
-    this rank's coordinates.  Refuses a mesh whose dims are not exactly
-    ``("y", "x")`` and a rank outside the mesh."""
-    if tuple(mesh.mesh_dim_names or ()) != ("y", "x"):
-        raise ValueError(f"the mesh needs the dims ('y', 'x'), got {mesh.mesh_dim_names}")
+    this rank's coordinates.  Takes the dims ``("y", "x")`` or ``("batch",
+    "y", "x")`` (each batch index a ``(y, x)`` sub-mesh of its own); refuses
+    other dims and a rank outside the mesh."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if names not in MESH_DIMS:
+        raise ValueError(f"the mesh needs the dims ('y', 'x') or ('batch', 'y', 'x'), got {names}")
     coord = mesh.get_coordinate()
     if coord is None:
         raise ValueError("this rank is not in the mesh")
-    ny, nx = mesh.mesh.shape
-    return int(ny), int(nx), int(coord[0]), int(coord[1])
+    ny, nx = mesh.mesh.shape[-2:]
+    return int(ny), int(nx), int(coord[-2]), int(coord[-1])
+
+
+def mesh_line(mesh, dim: str) -> tuple[list[int], int]:
+    """``(ranks, i)``: the global ranks of the mesh line through this rank
+    along ``dim``, in coordinate order, and this rank's index on it."""
+    coord = list(mesh.get_coordinate())
+    d = list(mesh.mesh_dim_names).index(dim)
+    index = tuple(slice(None) if j == d else c for j, c in enumerate(coord))
+    return [int(r) for r in mesh.mesh[index].reshape(-1)], int(coord[d])
 
 
 def staged(group, t: torch.Tensor) -> bool:
@@ -50,14 +66,9 @@ def staged(group, t: torch.Tensor) -> bool:
 def _neighbours(mesh, dim: str) -> tuple:
     """Global ranks of the predecessor and successor along ``dim`` (None
     off the grid)."""
-    _, _, iy, ix = mesh_layout(mesh)
-    ranks = mesh.mesh
-    if dim == "y":
-        line, i = ranks[:, ix], iy
-    else:
-        line, i = ranks[iy, :], ix
-    prev = int(line[i - 1]) if i > 0 else None
-    nxt = int(line[i + 1]) if i + 1 < line.numel() else None
+    line, i = mesh_line(mesh, dim)
+    prev = line[i - 1] if i > 0 else None
+    nxt = line[i + 1] if i + 1 < len(line) else None
     return prev, nxt
 
 

@@ -275,5 +275,5 @@ def test_builder_from_jax_carries_the_options(tmp_path):
         builder_from_jax(jc, device="cpu").build_segmenting().transform(img, seeds),
         np.asarray(JaxBuilder.default().build_segmenting().transform(img, seeds)),
     )
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="a JAX Mesh"):  # a JAX mesh translates (test_torch_mesh_batch.py)
         builder_from_jax(JaxBuilder.default().set_mesh(object()), device="cpu")

@@ -68,7 +68,7 @@ def test_builder_from_jax():
     np.testing.assert_array_equal(
         tb.build_segmenting().transform(img, seeds), np.asarray(jb.build_segmenting().transform(img, seeds))
     )
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="a JAX Mesh"):  # a JAX mesh translates (test_torch_mesh_batch.py)
         builder_from_jax(JaxBuilder.default().set_mesh(object()), device="cpu")
     # Progress is served: the same labels and progress bar as the JAX builder.
     jb = JaxBuilder.default().set_max_water_lvl(40).enable_progress()

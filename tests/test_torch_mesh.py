@@ -8,7 +8,8 @@ One spawn of four gloo ranks (tests/torch_mesh.py) computes every case: the
 public API (both variants, a non-divisible shape, edge correction), the
 engine at halo widths 1, 3 and 8 and a lower water level, four randomised
 trials, the round counts and the d-field saturation; the tests compare its
-results.  The options that ROADMAP item 13 (b) brings are refused.
+results.  The per-level statistics, the level loop and the batch axis have
+their own files (tests/test_torch_mesh_stats.py, _levels.py, _batch.py).
 """
 
 import functools
@@ -242,40 +243,49 @@ def test_mesh_saturation_warns_and_reruns_exactly(ranks, shape):
 
 
 def test_mesh_refuses_what_item_13b_brings(tmp_path):
-    """Under set_mesh: the host-stepped loop's options and checkpoints raise
-    at build, the per-level entries at the call, a 'batch' dim at build,
-    all naming ROADMAP item 13 (b); transform_batch without a 'batch' dim
-    and transform_with_hook without a hook serve; the random tie-break, a
-    1-D mesh and a mesh that is not one raise ValueError; a CUDA builder on
-    a host without CUDA still raises; builder_from_jax refuses a JAX mesh."""
+    """What ROADMAP item 13 (b) brought is served, and what a mesh still
+    refuses raises.  Under set_mesh on a one-rank mesh: the host-stepped
+    loop's options and checkpoints build and their runs equal the single
+    device's; the per-level entries and ``collect='sizes'`` serve; a
+    ``'batch'`` dim builds; transform_batch without a 'batch' dim and
+    transform_with_hook without a hook serve; the random tie-break, a 1-D
+    mesh and a mesh that is not one raise ValueError; a CUDA builder on a
+    host without CUDA still raises; builder_from_jax translates a JAX mesh;
+    JAX's jnp tiled engine raises naming item 13 (c)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from rustronomy_watershed_tpu_torch.convert import builder_from_jax
+    from rustronomy_watershed_tpu_torch.parallel import tiled_transform
     from rustronomy_watershed_tpu_torch.parallel.tiled import _relax_collect_tail
 
     img, seeds = _field("37x45")
+    single = _builder("merging")
+    (tmp_path / "plots").mkdir()
     with one_rank_group(tmp_path) as mesh:
         def tb():
             return TransformBuilder().set_device("cpu").set_mesh(mesh)
 
+        hook = lambda ctx: ctx.colours.copy()  # noqa: E731
         for configure in (
-            lambda b: b.set_wlvl_hook(lambda ctx: None), lambda b: b.set_plot_folder(str(tmp_path)),
-            lambda b: b.enable_progress(), lambda b: b.enable_debug(), lambda b: b.set_checkpoint(str(tmp_path)),
+            lambda b: b.set_wlvl_hook(hook), lambda b: b.set_plot_folder(str(tmp_path / "plots")),
+            lambda b: b.enable_progress(), lambda b: b.enable_debug(), lambda b: b.set_checkpoint(str(tmp_path / "c")),
         ):
-            with pytest.raises(NotImplementedError, match=r"item 13 \(b\)"):
-                configure(tb()).build_segmenting()
+            np.testing.assert_array_equal(configure(tb()).build_merging().transform(img, seeds),
+                                          single.transform(img, seeds))
         batch = DeviceMesh("cpu", [[[0]]], mesh_dim_names=("batch", "y", "x"))
-        with pytest.raises(NotImplementedError, match=r"'batch' dim.*item 13 \(b\)"):
-            TransformBuilder().set_device("cpu").set_mesh(batch).build_merging()
+        np.testing.assert_array_equal(TransformBuilder().set_device("cpu").set_mesh(batch).build_merging()
+                                      .transform_batch(img[None], [seeds]), single.transform_batch(img[None], [seeds]))
         ws = tb().build_merging()
-        for entry in (ws.transform_to_list, ws.transform_history):
-            with pytest.raises(NotImplementedError, match=r"item 13 \(b\)"):
-                entry(img, seeds)
-        with pytest.raises(NotImplementedError, match=r"item 13 \(b\)"):
-            _relax_collect_tail(torch.zeros((4, 4), dtype=torch.int32), global_shape=(4, 4), n_labels=1,
-                                merging=False, collect="sizes", mesh=mesh)
+        for entry in ("transform_to_list", "transform_history"):
+            got, want = getattr(ws, entry)(img, seeds), getattr(single, entry)(img, seeds)
+            assert len(got) == len(want) and all(g[0] == w[0] and np.array_equal(g[1], w[1]) for g, w in zip(got, want))
+        lab = torch.zeros((4, 4), dtype=torch.int32)
+        sizes = _relax_collect_tail(lab, torch.full((4, 4), 256), global_shape=(4, 4), n_labels=1,
+                                    max_water_level=2, merging=False, collect="sizes", mesh=mesh)[1]
+        np.testing.assert_array_equal(sizes.numpy(), [[16, 0]] * 3)
+        with pytest.raises(NotImplementedError, match=r"item 13 \(c\)"):
+            tiled_transform(torch.from_numpy(img), lab, mesh, n_labels=1, max_water_level=5, backend="relax")
         assert ws.transform_with_hook(img, seeds) == []
-        single = _builder("merging")
         np.testing.assert_array_equal(ws.transform_batch(img[None], [seeds]), single.transform_batch(img[None], [seeds]))
         np.testing.assert_array_equal(ws.transform(img, seeds), single.transform(img, seeds))
         with pytest.raises(ValueError, match="single-device"):
@@ -286,6 +296,7 @@ def test_mesh_refuses_what_item_13b_brings(tmp_path):
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="cuda"):
                 TransformBuilder().set_mesh(mesh).build_segmenting().transform(img, seeds)
-    jmesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("y", "x"))
-    with pytest.raises(NotImplementedError, match=r"item 13 \(b\)"):
-        builder_from_jax(JaxBuilder.default().set_mesh(jmesh), device="cpu")
+        jmesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("y", "x"))
+        translated = builder_from_jax(JaxBuilder.default().set_mesh(jmesh), device="cpu")
+        assert translated.mesh.mesh_dim_names == ("y", "x")
+        np.testing.assert_array_equal(translated.build_merging().transform(img, seeds), single.transform(img, seeds))

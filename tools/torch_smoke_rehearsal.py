@@ -16,9 +16,11 @@ fields too: checkpoints at 256^2 and a 320^2 plane snapshot, the flood
 kernel's host loop on the cut golden_morph_v1, the random tie-break on a
 512^2 Poisson field on both "devices", the native engine on the host.
 Phases 21-23 (the relax kernel's centre rectangle, the one-rank mesh on
-gloo instead of NCCL, the 2 x 2 gloo mesh whose four ranks run the twins)
-run on the cut fields; ``--mesh`` runs phases 1, 2 and 21-23 alone (their
-inputs made as main() makes them), in about a minute.
+gloo instead of NCCL, the 2 x 2 gloo mesh and the (2, 1, 2) batch mesh
+whose four ranks run the twins; the per-level API and the host loop on the
+cut golden_morph_v1 and its quadrants) run on the cut fields; ``--mesh``
+runs phases 1, 2 and 21-23 alone (their inputs made as main() makes them),
+in a few minutes.
 """
 
 from __future__ import annotations
@@ -83,6 +85,10 @@ CUTS = [
     ('    torch.cuda.set_device(0)\n', ''),
     ('        check(all(mesh_kernel_path(p["launches"]) for p in per),',
      '        check(all(p["launches"]["relax_plain"] > 0 for p in per),'),
+    ('            check(mesh_flood_path(got["loop_launches"]), f"rank {rank}',
+     '            check(got["loop_launches"]["flood_plain"] > 0, f"rank {rank}'),
+    ('        check(all(mesh_kernel_path(b["launches"]) for b in bat),',
+     '        check(all(b["launches"]["relax_plain"] > 0 for b in bat),'),
 ]
 
 
@@ -263,6 +269,7 @@ def mesh_only(mod) -> int:
     dots[rng.random((side, side)) < 0.1] = 255
     img_np = np.random.default_rng(0).integers(0, 254, (side, side)).astype(np.uint8)
     v, key0, lab0, _ = pack.pack_kernel(torch.from_numpy(img_np))
+    pimg = np.load(os.path.join(mod.GOLDEN, "golden_morph_v1.npz"))["img"][:96, :112]
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -274,10 +281,11 @@ def mesh_only(mod) -> int:
             tb = getattr(tb, setter)(*args)
         return getattr(tb, f"build_{variant}")()
 
+    ws = builder("segmenting")
     out = mod.mesh_phases(types.SimpleNamespace(
         dev=dev, gpu=mod.gpu_line(), to_dev=lambda a: torch.from_numpy(np.ascontiguousarray(a)),
         median_ms=lambda fn, reps: timed(fn)[1], timed=timed, builder=builder,
-        ws=builder("segmenting"), v=v, key0=key0, lab0=lab0, img_np=img_np, dots=dots,
+        ws=ws, v=v, key0=key0, lab0=lab0, img_np=img_np, dots=dots, pimg=pimg, pseeds=ws.find_local_minima(pimg),
     ))
     print(out)
     return 0
