@@ -26,7 +26,13 @@ mesh and on a 2 x 2 gloo mesh of four spawned processes sharing the card
 labels; the per-level API and the host loop with a hook and progress on
 golden_morph_v1, every relax call of the claims pass and every flood call
 of the level loop against the twins; a (2, 1, 2) batch mesh's
-``transform_batch``), and times the card.
+``transform_batch``; JAX's jnp tiled relax engine ``backend='relax'`` on
+both meshes), then ``utils.tracing.trace`` in a process of its own (the
+4096^2 transforms' kernels counted in the trace file against the route
+counters), the 4096^2 morphology field of ``tools/gen_golden_morph.py``'s
+recipe (labels against the native engine, a corner against the NumPy
+oracle, both computed in two processes of their own; ``pre_process_jnp`` on
+the card against the CPU), and times the card.
 One line per phase; the line before the last is the kernel table as JSON,
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the run exits non-zero; without CUDA it exits non-zero at once.  Imports
@@ -87,6 +93,139 @@ def bound(nbytes: float, ops: float):
 
 
 MESH_DEADLINE = 600.0  # seconds the ranks of the 2 x 2 mesh (phase 23) may take
+TRACE_DEADLINE = 300.0  # seconds the tracing phase's process (phase 24) may take
+# The morphology field (phase 25): tools/gen_golden_morph.py's recipe at
+# MORPH^2 (golden_morph_v1 is the same recipe at 1024^2), its MORPH_CROP^2
+# corner held against the NumPy oracle.
+MORPH, MORPH_CROP, MORPH_SEED, MORPH_MAX = 4096, 256, 20260820, 20
+MORPH_DEADLINE = 900.0  # seconds from their start the reference processes may take
+ANNOTATION = "merging nan10"  # the step_annotation of phase 24
+
+
+def morph_field(size: int):
+    """``(float field, u8 image)``: ``tests/torch_fields.py::morph_field``
+    (``tools/gen_golden_morph.py``'s recipe on the port's fields) at
+    ``size``^2, quantised to 21 levels by the port's pre-processor."""
+    from torch_fields import morph_field as recipe  # tests/, on sys.path since main()
+
+    from rustronomy_watershed_tpu_torch.ops.preprocess import pre_process
+
+    sm = recipe((size, size), MORPH_SEED)
+    return sm, pre_process(sm, MORPH_MAX)
+
+
+def morph_reference(variant: str, out_dir: str, size: int, crop_side: int) -> None:
+    """One background process of phase 25: the native engine's ``variant``
+    labels of the ``size``^2 morphology field and the NumPy oracle's of its
+    ``crop_side``^2 corner, with their seeds and host seconds, into
+    ``out_dir``; the segmenting process also writes the float field."""
+    from rustronomy_watershed_tpu_torch.parity import native, oracle_find_local_minima, oracle_transform
+
+    sm, img = morph_field(size)
+    if variant == "segmenting":
+        np.save(os.path.join(out_dir, "field.npy"), sm)
+    merging = variant == "merging"
+    t0 = time.perf_counter()
+    seeds = native.native_find_local_minima(img)
+    labels = native.native_transform(img, seeds, 254, merging=merging)
+    native_s = time.perf_counter() - t0
+    crop = img[:crop_side, :crop_side]
+    t0 = time.perf_counter()
+    crop_seeds = oracle_find_local_minima(crop)
+    crop_labels, _ = oracle_transform(crop, crop_seeds, 254, merging=merging)
+    oracle_s = time.perf_counter() - t0
+    np.savez(os.path.join(out_dir, f"{variant}.npz"), img=img, seeds=np.asarray(seeds, np.int64).reshape(-1, 2),
+             labels=np.asarray(labels, np.int32), crop_seeds=np.asarray(crop_seeds, np.int64).reshape(-1, 2),
+             crop_labels=np.asarray(crop_labels, np.int32), native_s=native_s, oracle_s=oracle_s)
+
+
+def start_morph_references() -> dict:
+    """Start phase 25's two reference processes (``morph_reference``, one a
+    variant; daemons, so they end with this process) writing into
+    ``build/smoke_morph``: ``{"dir", "procs", "t0"}``."""
+    import multiprocessing as mp
+
+    out_dir = os.path.join(HERE, "build", "smoke_morph")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    procs = {variant: mp.get_context("spawn").Process(target=morph_reference, daemon=True,
+                                                       args=(variant, out_dir, MORPH, MORPH_CROP))
+             for variant in ("segmenting", "merging")}
+    for proc in procs.values():
+        proc.start()
+    return {"dir": out_dir, "procs": procs, "t0": time.monotonic()}
+
+
+# Device kernels of the traced transforms (phase 24), by a part of their
+# demangled names, and the launches of each per count of its route counter.
+TRACED_KERNELS = {
+    "pack": ("pack_bands", "pack", 1),
+    "relax": ("relax_kernel", "relax", 1),
+    "coarsen": ("coarsen_strips", "coarsen", 1),
+    "coarse round column scans": ("vscan_tiles<true,", "coarse_round", 2),
+    "coarse round row kernel": ("row_ring<true>", "coarse_round", 1),
+    "coarse_broadcast": ("broadcast_rows", "coarse_broadcast", 1),
+}
+
+
+def read_trace(path) -> tuple[dict, set]:
+    """A trace file's device kernel events by name (``{name: count}``) and
+    the names of all its events."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    return kernels, {e.get("name") for e in events}
+
+
+def traced_rank(rank: int, log_root: str, side: int, device: str) -> dict:
+    """Phase 24, a spawned process (one profiler session a process is the
+    safe rule): one warm ``side``^2 segmenting ``watershed_e2e`` on the
+    uniform field and one NaN-dot merging ``watershed_e2e`` under
+    ``utils.tracing.trace``, the merging one inside a ``step_annotation``;
+    the route counters of the traced call, its trace file's kernels, walls
+    traced and untraced; then a second session in the same process."""
+    import torch
+
+    from rustronomy_watershed_tpu_torch import _ext
+    from rustronomy_watershed_tpu_torch.ops.pipeline import watershed_e2e
+    from rustronomy_watershed_tpu_torch.utils.tracing import step_annotation, trace, trace_artifacts
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(0)  # the draws of main()'s 4096^2 fields
+    img = rng.integers(0, 254, (side, side)).astype(np.uint8)
+    dots = img.copy()
+    dots[rng.random((side, side)) < 0.1] = 255
+    img_d, dots_d = torch.from_numpy(img).to(dev), torch.from_numpy(dots).to(dev)
+
+    def both():
+        t0 = time.perf_counter()
+        seg = watershed_e2e(img_d, device=dev)
+        with step_annotation(ANNOTATION):
+            mrg = watershed_e2e(dots_d, merging=True, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return (seg, mrg), (time.perf_counter() - t0) * 1e3
+
+    want, _ = both()  # warm: the kernel library is loaded and every plan made
+    untraced = [both()[1] for _ in range(3)]
+    res = {"untraced_ms": untraced}
+    for session in ("first", "second"):
+        log_dir = os.path.join(log_root, session)
+        _ext.reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with trace(log_dir):
+                got, wall = both()
+        arts = trace_artifacts(log_dir)
+        kernels, names = read_trace(arts[0]) if arts else ({}, set())
+        res[session] = dict(
+            wall_ms=wall, launches=dict(_ext.launches), same=all(torch.equal(a, b) for a, b in zip(got, want)),
+            warnings=[str(c.message) for c in caught if issubclass(c.category, RuntimeWarning)],
+            files=len(arts), bytes=sum(a.stat().st_size for a in arts), kernels=kernels, annotation=ANNOTATION in names)
+    return res
 
 
 def max_err(xs, ys) -> int:
@@ -233,7 +372,7 @@ def check_levels(got: dict, want: dict, what: str, root: bool = True) -> None:
           f"{what}: every flood call of MeshLevelStepper == twin on the same inputs (planes and flags)")
 
 
-def mesh_rank(rank: int, device: str, cases, level_cases=(), batch=None) -> dict:
+def mesh_rank(rank: int, device: str, cases, level_cases=(), batch=None, relax_cases=()) -> dict:
     """One rank of phase 23's 2 x 2 gloo mesh, a spawned process
     (``tests/torch_mesh.py::run_ranks``), computing its tile on ``device``.
     Per case ``(variant, image, seeds)``: every relax call of the mesh
@@ -241,7 +380,9 @@ def mesh_rank(rank: int, device: str, cases, level_cases=(), batch=None) -> dict
     calls, the API transform's wall and its launch counts.  Per level case
     ``(variant, image, seeds)``: ``level_paths``.  ``batch``, ``(images,
     seed lists)``: ``transform_batch`` on a (2, 1, 2) batch mesh, its
-    labels' digest and wall."""
+    labels' digest and wall.  Per relax case ``(variant, image, seeds)``:
+    ``tiled_transform`` on ``backend='relax'`` and on ``'packed'``, each
+    one's labels' digest, rounds, wall and launch counts."""
     import torch
     import torch.distributed as dist
 
@@ -282,6 +423,16 @@ def mesh_rank(rank: int, device: str, cases, level_cases=(), batch=None) -> dict
             out = wsb.transform_batch(imgs, seed_lists)
             res[("batch", variant)] = dict(sha=sha(out), wall_ms=(time.perf_counter() - t0) * 1e3,
                                            launches=dict(_ext.launches))
+    for variant, field, seeds in relax_cases:
+        f_t, l_t = torch.from_numpy(field).to(dev), torch.from_numpy(paint_seeds(field.shape, seeds)).to(dev)
+        res[("relax", variant)] = {}
+        for backend in ("relax", "packed"):
+            _ext.reset_launches()
+            t0 = time.perf_counter()
+            labels, stats, _ = _tiled_run(f_t, l_t, mesh, n_labels=len(seeds), max_water_level=254,
+                                          merging=variant == "merging", backend=backend)
+            res[("relax", variant)][backend] = dict(sha=sha(labels.cpu().numpy()), rounds=stats[0],
+                                                    ms=(time.perf_counter() - t0) * 1e3, launches=dict(_ext.launches))
     return res
 
 
@@ -438,6 +589,30 @@ def mesh_phases(c) -> dict:
                   f"{got['list_ms']:.1f} (single device {list_1:.1f}), history {got['history_ms']:.1f} (single device "
                   f"{hist_1:.1f}); host loop with hook and progress {got['loop_ms']:.1f}, "
                   f"{got['loop_ms'] / n_lv:.3f} ms a level; gpu={gpu}")
+        # JAX's jnp tiled relax engine (backend='relax'): plain torch ops on
+        # the card, no kernel; beside the packed engine on the same inputs.
+        relax_cases = [("segmenting", f"uniform {SIDE}^2", img_np, mesh_seeds["segmenting"], single_labels["segmenting"])]
+        relax_cases += [(variant, f"golden_morph_v1 {pimg.shape}", pimg, pseeds, builder(variant).transform(pimg, pseeds))
+                        for variant in ("segmenting", "merging")]
+        for variant, label, field, sd, want in relax_cases:
+            f_t, l_t = to_dev(field), to_dev(paint_seeds(field.shape, sd))
+            runs = {}
+            for backend in ("relax", "packed"):
+                _ext.reset_launches()
+                (got, stats, starved), ms = timed(lambda: _tiled_run(
+                    f_t, l_t, mesh1, n_labels=len(sd), max_water_level=254, merging=variant == "merging",
+                    backend=backend))
+                runs[backend] = dict(rounds=stats[0], ms=ms, launches=dict(_ext.launches))
+                check(got.device == f_t.device and np.array_equal(got.cpu().numpy(), want) and not starved,
+                      f"1x1 NCCL mesh backend={backend!r} {variant} {label} == single device")
+            counts = runs["relax"]["launches"]
+            check(sum(counts[k] + counts[f"{k}_plain"] for k in _ext.KERNELS) == 0,
+                  f"backend='relax' ({variant} {label}) launched no kernel and no twin")
+            check(mesh_kernel_path(runs["packed"]["launches"]), f"backend='packed' ({variant} {label}) launched relax")
+            print(f"[22 mesh relax] {label} {variant}: tiled_transform(backend='relax') on the 1x1 NCCL mesh == single "
+                  f"device, plain torch ops, no kernel launched; {runs['relax']['rounds']} rounds of {s} sweeps "
+                  f"{runs['relax']['ms']:.1f} ms, against backend='packed' {runs['packed']['rounds']} rounds "
+                  f"{runs['packed']['ms']:.1f} ms (wall, one run each); gpu={gpu}")
     finally:
         dist.destroy_process_group()
 
@@ -455,7 +630,7 @@ def mesh_phases(c) -> dict:
     level_want = {variant: level_refs(builder, quads[0], quad_seeds[0], variant) for variant in ("segmenting", "merging")}
     batch_want = {variant: sha(builder(variant).transform_batch(quads, quad_seeds)) for variant in ("segmenting", "merging")}
     t0 = time.perf_counter()
-    ranks_out = run_ranks(mesh_rank, 4, mesh_root, str(dev), cases, level_cases, (quads, quad_seeds),
+    ranks_out = run_ranks(mesh_rank, 4, mesh_root, str(dev), cases, level_cases, (quads, quad_seeds), level_cases,
                           deadline=MESH_DEADLINE)
     spawn_s = time.perf_counter() - t0
     for variant, label, _ in mesh_cases:
@@ -500,7 +675,18 @@ def mesh_phases(c) -> dict:
         print(f"[23 mesh batch] (2, 1, 2) gloo batch mesh, 4 x {quads[0].shape} {variant} transform_batch == the single "
               f"device's on every rank; relax launches per rank {[b['launches']['relax'] for b in bat]}; wall ms "
               f"per rank {[round(b['wall_ms'], 1) for b in bat]}; gpu={gpu}")
-    print(f"[23 mesh 2x2] spawn, import, both variants twice, the level paths, the batch mesh and exit: {spawn_s:.1f} s")
+    for variant in ("segmenting", "merging"):
+        per = [r[("relax", variant)] for r in ranks_out]
+        check(all(p["relax"]["sha"] == p["packed"]["sha"] == level_want[variant]["labels"] for p in per),
+              f"every rank's 2x2 gloo mesh backend='relax' and 'packed' {variant} labels == single device")
+        check(all(sum(p["relax"]["launches"][k] + p["relax"]["launches"][f"{k}_plain"] for k in _ext.KERNELS) == 0
+                  for p in per), f"backend='relax' ({variant}) launched no kernel and no twin on any rank")
+        print(f"[23 mesh relax] golden_morph_v1 quadrant {quads[0].shape} {variant}: tiled_transform(backend='relax') "
+              f"on every rank of the 2x2 gloo mesh == single device, no kernel launched; {per[0]['relax']['rounds']} "
+              f"rounds, wall ms per rank {[round(p['relax']['ms'], 1) for p in per]}, against backend='packed' "
+              f"{per[0]['packed']['rounds']} rounds, {[round(p['packed']['ms'], 1) for p in per]}; gpu={gpu}")
+    print(f"[23 mesh 2x2] spawn, import, both variants twice, the level paths, the batch mesh, both relax engines and "
+          f"exit: {spawn_s:.1f} s")
     shutil.rmtree(mesh_root)
 
     # The relax_ctr row's times: the 1x1 mesh's first call, at its shape.
@@ -515,6 +701,114 @@ def mesh_phases(c) -> dict:
           f"{ctr_bound[0]:.4f} ms ({ctr_bound[1]}); gpu={gpu}")
     return dict(launches=mesh_counts["relax_ctr"], err=mesh_err, ms=ctr_ms, plain_ms=ctr_plain_ms, bound=ctr_bound,
                 flood_err=flood_err, flood_launches=flood_launches)
+
+
+def late_phases(c) -> None:
+    """Phases 24-25: ``utils.tracing.trace`` on the card in a process of its
+    own, then the 4096^2 morphology field against the references of
+    ``start_morph_references``, started after the last timed phase so that
+    no time of the smoke is taken beside them.  ``c`` holds the device and
+    its line, helpers and the segmenting builder ``ws``."""
+    import torch
+
+    from rustronomy_watershed_tpu_torch import _ext
+
+    dev, gpu, to_dev, timed, builder, ws = c.dev, c.gpu, c.to_dev, c.timed, c.builder, c.ws
+    # -- 24: utils.tracing.trace on the card, in a process of its own ----------
+    from torch_mesh import run_ranks  # tests/, on sys.path since main()
+
+    trace_root = os.path.join(HERE, "build", "smoke_trace")
+    shutil.rmtree(trace_root, ignore_errors=True)
+    os.makedirs(trace_root)
+    t0 = time.perf_counter()
+    (tr,) = run_ranks(traced_rank, 1, trace_root, trace_root, SIDE, str(dev), deadline=TRACE_DEADLINE)
+    trace_s = time.perf_counter() - t0
+    first, second = tr["first"], tr["second"]
+    check(first["same"] and second["same"], "the traced transforms' labels == the untraced ones'")
+    check(first["warnings"] == [], f"the first session raised no RuntimeWarning: {first['warnings']}")
+    check(first["files"] == 1 and first["bytes"] > 0 and first["annotation"],
+          f"the first session left one trace file holding the step annotation {ANNOTATION!r}")
+    routes = first["launches"]
+    check(routes["pack_vec"] == routes["pack"] and routes["coarsen_vec"] == routes["coarsen"]
+          and routes["coarse_broadcast_vec"] == routes["coarse_broadcast"]
+          and routes["coarse_round_ring"] == routes["coarse_round"] and routes["merge_tail"] == 1,
+          "the traced transforms took the vector routes, the ring rounds and the merging tail")
+    traced = {}
+    for what, (part, counter, per) in TRACED_KERNELS.items():
+        n = sum(c for k, c in first["kernels"].items() if part in k)
+        traced[what] = (n, per * routes[counter])
+        check(n == per * routes[counter] > 0, f"the trace holds {what}'s {per} x {routes[counter]} launches ({n})")
+    n2 = sum(second["kernels"].values())
+    warned2 = any("no kernel on the device" in w for w in second["warnings"])
+    check((n2 > 0 and not second["warnings"]) or (n2 == 0 and warned2 and second["files"] == 1),
+          f"the second session: device kernels and no warning, or none and the RuntimeWarning ({n2}, "
+          f"{second['warnings']})")
+    print(f"[24 trace] utils.tracing.trace around one {SIDE}^2 segmenting and one 10% NaN-dot merging watershed_e2e "
+          f"(step_annotation {ANNOTATION!r}) in a spawned process: no warning; the trace file ({first['bytes']} bytes) "
+          f"holds the annotation and each kernel at its route counters' launches (traced, route): "
+          + ", ".join(f"{k} {a}/{b}" for k, (a, b) in traced.items()) + f"; gpu={gpu}")
+    case = (f"{n2} device kernel events and no warning" if n2 else
+            "no device kernel event, and the RuntimeWarning came" if warned2 else "no device kernel event, no warning")
+    print(f"[24 trace] a second session in the same process: {case}; its file {second['bytes']} bytes")
+    print(f"[24 time] the two transforms' wall: untraced {[round(t, 2) for t in tr['untraced_ms']]} ms, traced "
+          f"{first['wall_ms']:.2f} ms (first session), {second['wall_ms']:.2f} ms (second); the phase {trace_s:.1f} s; "
+          f"gpu={gpu}")
+    shutil.rmtree(trace_root)
+
+    # -- 25: the 4096^2 morphology field --------------------------------------
+    from rustronomy_watershed_tpu_torch.ops.preprocess import pre_process, pre_process_jnp
+
+    # The native engine takes minutes at 4096^2 on one host thread: this
+    # process waits for the two references and then times the card alone.
+    morph = start_morph_references()
+    for variant, proc in morph["procs"].items():
+        proc.join(timeout=max(1.0, MORPH_DEADLINE - (time.monotonic() - morph["t0"])))
+        check(proc.exitcode == 0, f"the {variant} reference process finished ({proc.exitcode})")
+    print(f"[25 morph] the references (the native engine on the {MORPH}^2 field and the NumPy oracle on its "
+          f"{MORPH_CROP}^2 corner, a process for each variant) took {time.monotonic() - morph['t0']:.1f} s of waiting")
+    ref = {variant: np.load(os.path.join(morph["dir"], f"{variant}.npz")) for variant in morph["procs"]}
+    sm_field = np.load(os.path.join(morph["dir"], "field.npy"))
+    mimg = pre_process(sm_field, MORPH_MAX)
+    check(all(np.array_equal(mimg, r["img"]) for r in ref.values()), "the morphology field rebuilt equally")
+    mseeds = ws.find_local_minima(mimg)
+    check(np.array_equal(np.asarray(mseeds, np.int64).reshape(-1, 2), ref["segmenting"]["seeds"]),
+          "the card's seeds of the morphology field == the native engine's")
+    crop = mimg[:MORPH_CROP, :MORPH_CROP]
+    cseeds = ws.find_local_minima(crop)
+    for variant in ("segmenting", "merging"):
+        r = ref[variant]
+        wsv = builder(variant)
+        wsv.transform(mimg, mseeds)  # warm
+        _ext.reset_launches()
+        got, m_ms = timed(lambda: wsv.transform(mimg, mseeds))
+        counts = dict(_ext.launches)
+        check(np.array_equal(got, r["labels"]), f"{MORPH}^2 morphology {variant} on the card == the native engine")
+        check(counts["relax"] > 0, f"the morphology {variant} transform launched relax")
+        if counts["merge_tail"]:
+            check(all(counts[k] > 0 for k in ("coarsen", "coarse_round", "coarse_broadcast")),
+                  "the morphology merging tail launched the coarse kernels")
+        check(sum(counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, f"no plain twin on the morphology {variant} transform")
+        check(np.array_equal(np.asarray(cseeds, np.int64).reshape(-1, 2), r["crop_seeds"])
+              and np.array_equal(wsv.transform(crop, cseeds), r["crop_labels"]),
+              f"the {MORPH_CROP}^2 corner ({variant}) on the card == the NumPy oracle")
+        route = "" if variant == "segmenting" else (" (tail)" if counts["merge_tail"] else " (shortcut)")
+        print(f"[25 morph] {MORPH}^2 golden_morph recipe, {len(mseeds)} seeds, {int((mimg == 255).sum())} NEVER_FILL: "
+              f"{variant} transform on the card == the native engine{route}; its {MORPH_CROP}^2 corner == "
+              f"oracle_transform; launches { {k: n for k, n in counts.items() if n} }; API wall {m_ms:.1f} ms; "
+              f"native {float(r['native_s']):.1f} s, oracle on the corner {float(r['oracle_s']):.1f} s (host, "
+              f"in the reference processes); gpu={gpu}")
+    x_dev = to_dev(sm_field)
+    on_card, pp_ms = timed(lambda: pre_process_jnp(x_dev, MORPH_MAX, device=dev))
+    on_cpu = pre_process_jnp(sm_field, MORPH_MAX, device="cpu")
+    check(on_card.device.type == dev.type and on_card.dtype == torch.uint8 and torch.equal(on_card.cpu(), on_cpu),
+          "pre_process_jnp on the card == on the CPU, bit for bit")
+    n_diff = int((on_cpu.numpy() != mimg).sum())
+    max_diff = int(np.abs(on_cpu.numpy().astype(int) - mimg).max())
+    print(f"[25 morph] pre_process_jnp({MORPH}^2 float64 field, {MORPH_MAX}) on the card == on the CPU; against the "
+          f"float64 pre_process {n_diff} pixels differ (at most {max_diff} level); {pp_ms:.2f} ms on the card; "
+          f"gpu={gpu}")
+    del sm_field, x_dev, on_card, on_cpu
+    shutil.rmtree(morph["dir"])
 
 
 def main() -> int:
@@ -1685,6 +1979,8 @@ def main() -> int:
         builder=builder, ws=ws, v=v, key0=key0, lab0=lab0, img_np=img_np, dots=dots, pimg=pimg, pseeds=pseeds,
     ))
 
+    late_phases(types.SimpleNamespace(dev=dev, gpu=gpu, to_dev=to_dev, timed=timed, builder=builder, ws=ws))
+
     # Bytes each function must move at 4096^2 (each input read once, each
     # output written once) and the integer operations it does per cell.
     bounds = {
@@ -1734,9 +2030,9 @@ def main() -> int:
             library_ms=None,  # no single PyTorch call computes any of these functions
         ))
         device = f", device {dev_ms[kname]:.4f} ms (profiler)" if kname in dev_ms else ""
-        print(f"[24 bound] {kname}: {ms:.4f} ms{device} against a bound of {b_ms:.4f} ms ({b_by}); gpu={gpu}")
+        print(f"[26 bound] {kname}: {ms:.4f} ms{device} against a bound of {b_ms:.4f} ms ({b_by}); gpu={gpu}")
     pb_ms, pb_by = big_bounds["pack"]
-    print(f"[24 bound] pack {BIG}^2: {big_ms['pack'][0]:.4f} ms, device {dev_ms['pack 16384']:.4f} ms (profiler) "
+    print(f"[26 bound] pack {BIG}^2: {big_ms['pack'][0]:.4f} ms, device {dev_ms['pack 16384']:.4f} ms (profiler) "
           f"against a bound of {pb_ms:.4f} ms ({pb_by}); plain {big_ms['pack'][1]:.3f} ms; gpu={gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

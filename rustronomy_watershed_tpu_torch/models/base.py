@@ -97,13 +97,6 @@ def _surviving_min(coords, w: int) -> int:
     return int(keep.min()) + 1
 
 
-def _not_yet(what: str, item):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet "
-        f"(ROADMAP queue 1 item {item})"
-    )
-
-
 def _expand_rows(sizes, counts_length: int, max_water_level: int, copy: bool = False):
     """``[(level, counts row)]`` with rows of ``counts_length`` int64
     (the reference's ``n_pixels + 1`` by default, src/lib.rs:630).

@@ -1,22 +1,24 @@
 """The watershed tiled over a ``torch.distributed`` device mesh.
 
-Counterpart of ``rustronomy_watershed_tpu.parallel.tiled``.  Two engines:
+Counterpart of ``rustronomy_watershed_tpu.parallel.tiled``.  Three engines:
 
 * ``backend='packed'`` (JAX's ``'relax_pallas'``): the tiled packed relax
-  engine (``_local_relax_driver``), one relax fixed point over the mesh for
-  the whole transform; final labels (the merging variant adds the mesh
-  merge ``_merge_fixed_point``), and for segmenting the per-level
-  statistics from the claim levels (``collect='sizes'`` / ``'history'``)
-  or the raw ``(labels, claim levels)`` planes (``collect='claims'``, the
-  builder's per-level API);
+  engine (``_local_relax_packed_driver``), one relax fixed point over the
+  mesh on the relax kernel for the whole transform; final labels (the
+  merging variant adds the mesh merge ``_merge_fixed_point``), and for
+  segmenting the per-level statistics from the claim levels
+  (``collect='sizes'`` / ``'history'``) or the raw ``(labels, claim
+  levels)`` planes (``collect='claims'``, the builder's per-level API);
+* ``backend='relax'``: JAX's jnp tiled relax engine
+  (``_local_relax_driver``), the same fixed point on unpacked ``(L, d,
+  label)`` int32 planes swept by plain torch ops (``ops.priority.
+  relax_sweep``; no kernel, as JAX's runs no Pallas), with the same
+  collects; its d field cannot saturate;
 * ``backend='sweep'``: the per-level flood loop on the flood kernel
   (``_local_level_driver``), which alone gives the merging variant's
   per-level statistics.  ``MeshLevelStepper`` steps the same levels from
   the host for the builder's hooks, plots, progress, debug and
   checkpoints.
-
-JAX's jnp tiled relax engine (``backend='relax'``) is not ported yet
-(ROADMAP queue 1 item 13 (c)).
 
 SPMD.  JAX runs one controller over every device; here every rank is a
 process that calls ``tiled_transform`` with the same full image and seeds.
@@ -46,7 +48,7 @@ import torch
 import torch.distributed as dist
 
 from ..constants import INT32_MAX, NEVER_FILL, NORMAL_MAX, UNCOLOURED
-from ..ops import flood_block, relax
+from ..ops import flood_block, priority, relax
 from ..ops.histogram import value_histogram
 from ..ops.level_driver import _collect_loop
 from ..ops.merge import _pointer_jump
@@ -167,7 +169,7 @@ def _complement_column0(sizes: torch.Tensor, global_shape) -> torch.Tensor:
 
 
 def _relax_collect_tail(labels, L, *, global_shape, n_labels, max_water_level, merging, collect, mesh):
-    """The statistics / merge tail of the tiled relax engine (tiled.py:
+    """The statistics / merge tail of the tiled relax engines (tiled.py:
     226-283 of the JAX package).  ``collect='claims'`` returns the raw
     ``(labels, claim levels)`` tile planes; ``'sizes'`` the mesh-summed
     ``(levels, K+1)`` cumulative counts with column 0 the complement
@@ -202,8 +204,8 @@ def _image_plane(img_tile, global_shape, k: int, mesh) -> torch.Tensor:
     return torch.where(interior, v_p, NEVER_FILL).to(torch.uint8).contiguous()
 
 
-def _local_relax_driver(img_tile, lab_tile, *, global_shape, n_labels, max_water_level, merging, halo, mesh,
-                        collect="none", on_call=None):
+def _local_relax_packed_driver(img_tile, lab_tile, *, global_shape, n_labels, max_water_level, merging, halo,
+                               mesh, collect="none", on_call=None):
     """The tiled packed relax engine on this rank's ``(h, w)`` tile (the
     counterpart of ``_local_relax_pallas_driver``, tiled.py:286-549).
     Returns ``(out, [rounds, tile calls run], starved)``, ``out`` as
@@ -308,6 +310,59 @@ def _local_relax_driver(img_tile, lab_tile, *, global_shape, n_labels, max_water
     return out, [rounds, runs], starved
 
 
+def _local_relax_driver(img_tile, lab_tile, *, global_shape, n_labels, max_water_level, merging, halo, mesh,
+                        collect="none"):
+    """JAX's jnp tiled relax engine on this rank's ``(h, w)`` tile (tiled.py:
+    152-223 of the JAX package): the exact priority relaxation
+    (ops/priority.py) on unpacked int32 ``(L, d, label)`` planes, plain
+    torch ops on the tile's device.  Returns ``(out, [rounds, tile rounds
+    run], False)``, ``out`` as ``_relax_collect_tail`` gives it.
+
+    The ``(h + 2k, w + 2k)`` value plane is exchanged once, under the
+    GLOBAL border rule (``_image_plane``).  The planes start from the seeds
+    (key ``(0, 0)``; ``_BIG_L`` / ``_BIG_D`` / UNCOLOURED elsewhere).  A
+    round exchanges the k-px halos of all three (off-grid: ``_BIG_L``,
+    ``_BIG_D``, UNCOLOURED), runs ``k`` ``relax_sweep`` on the halo planes
+    and keeps their centres; another round runs iff some rank's centre L, d
+    or label changed (an all-reduce SUM of one int).
+
+    Why ``k`` sweeps a round are exact: ``relax_sweep`` reads the cells
+    outside the plane as inert (unclaimed, label 0), which the true
+    neighbours need not be; JAX's rolls them in from the opposite edge.
+    Either way that corruption enters at the plane's edge and moves one
+    ring a sweep, so after ``k`` sweeps the centre, k rings in, is exact,
+    and the next exchange rewrites every halo cell.  So a round is exactly
+    k global sweeps, as JAX's is.
+
+    d is int32 up to ``_BIG_D = 2**30`` and cannot saturate on any
+    addressable image: ``starved`` is always False and nothing re-runs.
+    The labels are masked by the claim level (``L <= max_water_level``) at
+    every depth."""
+    h, w = lab_tile.shape
+    k = halo
+    ny, nx, _, _ = mesh_layout(mesh)
+    v_p = _image_plane(img_tile, global_shape, k, mesh).to(torch.int32)
+    lab = lab_tile.to(torch.int32).contiguous()
+    seeds = lab != UNCOLOURED
+    L = torch.where(seeds, 0, _BIG_L).to(torch.int32)
+    d = torch.where(seeds, 0, priority._BIG_D).to(torch.int32)
+    rounds = 0
+    while True:
+        st = (exchange_halo(L, k, mesh, off_grid_fill=_BIG_L), exchange_halo(d, k, mesh, off_grid_fill=priority._BIG_D),
+              exchange_halo(lab, k, mesh, off_grid_fill=UNCOLOURED))
+        for _ in range(k):
+            st = priority.relax_sweep(v_p, st)
+        L2, d2, lab2 = (a[k : k + h, k : k + w].contiguous() for a in st)
+        changed = ((L2 != L) | (d2 != d) | (lab2 != lab)).any().to(torch.int32).reshape(1)
+        L, d, lab, rounds = L2, d2, lab2, rounds + 1
+        if not int(_mesh_all_reduce(changed, dist.ReduceOp.SUM, mesh)[0]):
+            break
+    labels = torch.where(L <= max_water_level, lab, UNCOLOURED)
+    out = _relax_collect_tail(labels, L, global_shape=global_shape, n_labels=n_labels,
+                              max_water_level=max_water_level, merging=merging, collect=collect, mesh=mesh)
+    return out, [rounds, rounds * ny * nx], False
+
+
 def _tiled_flood_fixed_point(img_p, lab, lvl: int, *, halo: int, mesh, on_call=None):
     """Flood one water level of this rank's ``(h, w)`` label tile to the
     mesh-global fixed point (tiled.py:552-576 of the JAX package); shared
@@ -403,21 +458,27 @@ def _mesh_pad(img, labels0, ny: int, nx: int):
 
 def _auto_backend(merging: bool, collect: str) -> str:
     """``backend='auto'`` (tiled.py:853-865): the level sweep for the
-    merging variant's per-level statistics, the packed engine otherwise."""
+    merging variant's per-level statistics, the packed engine otherwise.
+    JAX's ``'auto'`` takes its jnp engine ``'relax'`` on every mesh that is
+    not a TPU mesh; the port's takes the packed engine on every device (its
+    kernel's twin on the CPU), a deliberate divergence (ROADMAP queue 3)
+    that changes no label."""
     return "sweep" if merging and collect != "none" else "packed"
 
 
 def _tiled_run(img, labels0, mesh, *, n_labels: int, max_water_level: int, merging: bool = False,
                halo: int | None = None, collect: str = "none", backend: str = "packed", on_call=None):
-    """``tiled_transform`` of one ``(H, W)`` image on ``backend`` (``'packed'``
-    or ``'sweep'``): ``(out, [rounds, tile calls run] or None, starved)``.
+    """``tiled_transform`` of one ``(H, W)`` image on ``backend`` (``'packed'``,
+    ``'relax'`` or ``'sweep'``): ``(out, [rounds, tile calls run] or None,
+    starved)`` (for ``'relax'`` the tile calls are tile rounds).
     ``out`` is the cropped labels, or ``(labels, second)`` with a collect:
     the claim levels or snapshots (all-gathered and cropped like the
     labels) or the sizes (already mesh-wide).  ``starved``: the packed
     key's d field saturated somewhere on the mesh, so the caller should
     re-run on the exact engine (the JAX mesh drops this flag).  ``on_call``
     goes to the driver: a relax call's ``(v, src, dst, flags, ctr)`` or a
-    flood call's ``(v, src, dst, flags, lvl)``."""
+    flood call's ``(v, src, dst, flags, lvl)`` (``'relax'`` calls no
+    kernel and shows nothing)."""
     ny, nx, iy, ix = mesh_layout(mesh)
     gh, gw = img.shape
     img_p, lab_p = _mesh_pad(img, labels0, ny, nx)
@@ -428,12 +489,14 @@ def _tiled_run(img, labels0, mesh, *, n_labels: int, max_water_level: int, mergi
     if not 1 <= k <= min(h, w):
         raise ValueError(f"halo {k} must lie in 1..min(tile) = {min(h, w)} for {h}x{w} tiles")
     kw = dict(global_shape=(gh, gw), n_labels=n_labels, max_water_level=max_water_level, merging=merging,
-              halo=k, mesh=mesh, collect=collect, on_call=on_call)
+              halo=k, mesh=mesh, collect=collect)
     tile = (slice(iy * h, (iy + 1) * h), slice(ix * w, (ix + 1) * w))
     if backend == "packed":
+        out, stats, starved = _local_relax_packed_driver(img_p[tile], lab_p[tile], on_call=on_call, **kw)
+    elif backend == "relax":
         out, stats, starved = _local_relax_driver(img_p[tile], lab_p[tile], **kw)
     elif backend == "sweep":
-        out, stats, starved = _local_level_driver(img_p[tile], lab_p[tile], **kw), None, False
+        out, stats, starved = _local_level_driver(img_p[tile], lab_p[tile], on_call=on_call, **kw), None, False
     else:
         raise ValueError(f"unknown tiled backend {backend!r}")
 
@@ -485,37 +548,34 @@ def tiled_transform(img, labels0, mesh, *, n_labels: int, max_water_level: int, 
     docstring): final labels, ``(H, W)`` int32 on the device of ``img``;
     with ``collect='sizes'`` also the ``(levels, K+1)`` int32 lake sizes,
     with ``'history'`` the ``(levels, H, W)`` snapshots, with ``'claims'``
-    (segmenting, packed) the raw claim levels (``_BIG_L`` = 256 where no
-    seed claimed).  With ``axis_batch`` the inputs are ``(B, H, W)``
+    (segmenting, ``'packed'`` or ``'relax'``) the raw claim levels
+    (``_BIG_L`` = 256 where no seed claimed; the packed key leaves level
+    255 unclaimed, the unpacked ``'relax'`` planes may claim it).  With ``axis_batch`` the inputs are ``(B, H, W)``
     stacks split over that mesh dim (B divisible by its size) and the
     outputs gain the batch axis (the sizes and snapshots after the level
     axis, as in the JAX package).
 
     Every rank passes the same full image and seeds.  ``backend``:
-    ``'packed'`` (JAX's ``'relax_pallas'``), ``'sweep'`` (the per-level
-    flood loop) or ``'auto'`` (``_auto_backend``: the level sweep for
-    merging with a collect, the packed engine otherwise); JAX's jnp engine
-    ``'relax'`` is not ported yet.  ``halo`` is the halo width k and the
+    ``'packed'`` (JAX's ``'relax_pallas'``), ``'relax'`` (JAX's jnp engine,
+    plain torch ops), ``'sweep'`` (the per-level flood loop) or ``'auto'``
+    (``_auto_backend``: the level sweep for merging with a collect, the
+    packed engine otherwise).  ``halo`` is the halo width k and the
     sweeps per round; ``None`` takes ``DEFAULT_STEPS`` clamped to the tile
     extents, as tiled.py:758-761 clamps.  ``with_stats=True`` (packed,
     ``collect='none'``, no batch) also returns ``[rounds, tile calls run]``
     (the mesh scaling study's counts)."""
-    if backend == "relax":
-        from ..models.base import _not_yet
-
-        raise _not_yet("tiled_transform(backend='relax'), the jnp tiled relax engine", "13 (c)")
-    if backend not in ("auto", "packed", "sweep"):
-        raise ValueError(f"unknown backend {backend!r} (auto, packed or sweep)")
+    if backend not in ("auto", "packed", "relax", "sweep"):
+        raise ValueError(f"unknown backend {backend!r} (auto, packed, relax or sweep)")
     if collect not in COLLECTS:
         raise ValueError(f"unknown collect mode {collect!r}")
     if backend == "auto":
         backend = _auto_backend(merging, collect)
     if with_stats and (backend != "packed" or collect != "none" or axis_batch is not None):
         raise ValueError("with_stats=True needs backend='packed', collect='none' and no batch axis")
-    if collect == "claims" and (merging or backend != "packed"):
-        raise ValueError("collect='claims' is the packed engine's raw (labels, claim levels) output; "
-                         "use merging=False with backend 'packed'")
-    if merging and collect != "none" and backend == "packed":
+    if collect == "claims" and (merging or backend not in ("packed", "relax")):
+        raise ValueError("collect='claims' is the relax engines' raw (labels, claim levels) output; "
+                         "use merging=False with backend 'packed' or 'relax'")
+    if merging and collect != "none" and backend in ("packed", "relax"):
         raise ValueError("tiled relax: merging supports collect='none' only")
     kw = dict(n_labels=n_labels, max_water_level=max_water_level, merging=merging, halo=halo, collect=collect,
               backend=backend)

@@ -251,7 +251,8 @@ def test_mesh_refuses_what_item_13b_brings(tmp_path):
     transform_with_hook without a hook serve; the random tie-break, a 1-D
     mesh and a mesh that is not one raise ValueError; a CUDA builder on a
     host without CUDA still raises; builder_from_jax translates a JAX mesh;
-    JAX's jnp tiled engine raises naming item 13 (c)."""
+    JAX's jnp tiled engine (``backend='relax'``, item 13 (c)) serves and
+    equals the single device."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from rustronomy_watershed_tpu_torch.convert import builder_from_jax
@@ -283,8 +284,10 @@ def test_mesh_refuses_what_item_13b_brings(tmp_path):
         sizes = _relax_collect_tail(lab, torch.full((4, 4), 256), global_shape=(4, 4), n_labels=1,
                                     max_water_level=2, merging=False, collect="sizes", mesh=mesh)[1]
         np.testing.assert_array_equal(sizes.numpy(), [[16, 0]] * 3)
-        with pytest.raises(NotImplementedError, match=r"item 13 \(c\)"):
-            tiled_transform(torch.from_numpy(img), lab, mesh, n_labels=1, max_water_level=5, backend="relax")
+        np.testing.assert_array_equal(
+            tiled_transform(torch.from_numpy(img), torch.from_numpy(paint_seeds(img.shape, seeds)), mesh,
+                            n_labels=len(seeds), max_water_level=254, merging=True, backend="relax").numpy(),
+            single.transform(img, seeds))
         assert ws.transform_with_hook(img, seeds) == []
         np.testing.assert_array_equal(ws.transform_batch(img[None], [seeds]), single.transform_batch(img[None], [seeds]))
         np.testing.assert_array_equal(ws.transform(img, seeds), single.transform(img, seeds))

@@ -28,7 +28,7 @@ from rustronomy_watershed_tpu.prelude import TransformBuilder as JaxBuilder
 from rustronomy_watershed_tpu_torch.ops.level_driver import run_levels_impl
 from rustronomy_watershed_tpu_torch.ops.seeds import paint_seeds
 from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
-from torch_mesh import mesh_of, run_ranks
+from torch_mesh import mesh_of, one_rank_group, run_ranks
 
 torch.set_num_threads(1)
 
@@ -343,19 +343,30 @@ def test_level_sweep_backend_final_labels(ranks, shape, variant):
         np.testing.assert_array_equal(got, want)
 
 
-def test_jnp_tiled_relax_backend_is_queued():
-    """JAX's jnp tiled relax engine (``backend='relax'``) is ROADMAP queue
-    1 item 13 (c); an unknown backend and collect raise ValueError."""
+def test_jnp_tiled_relax_backend_is_queued(tmp_path):
+    """JAX's jnp tiled relax engine (``backend='relax'``, ROADMAP queue 1
+    item 13 (c)) serves: on a one-rank mesh it equals the single device, for
+    merging with ``collect='none'`` only, as JAX's; an unknown backend and
+    collect raise ValueError.  The name is historical: the test once held
+    the engine queued, and keeps its name now that the engine serves."""
     from rustronomy_watershed_tpu_torch.parallel import tiled_transform
 
     img = torch.zeros((8, 8), dtype=torch.uint8)
     lab = torch.zeros((8, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=r"item 13 \(c\)"):
-        tiled_transform(img, lab, None, n_labels=1, max_water_level=5, backend="relax")
     with pytest.raises(ValueError, match="backend"):
         tiled_transform(img, lab, None, n_labels=1, max_water_level=5, backend="jnp")
     with pytest.raises(ValueError, match="collect"):
         tiled_transform(img, lab, None, n_labels=1, max_water_level=5, collect="counts")
-    with pytest.raises(ValueError, match="merging supports collect='none' only"):
-        tiled_transform(img, lab, None, n_labels=1, max_water_level=5, merging=True, collect="sizes",
-                        backend="packed")
+    for backend in ("packed", "relax"):
+        with pytest.raises(ValueError, match="merging supports collect='none' only"):
+            tiled_transform(img, lab, None, n_labels=1, max_water_level=5, merging=True, collect="sizes",
+                            backend=backend)
+    with pytest.raises(ValueError, match="collect='claims'"):
+        tiled_transform(img, lab, None, n_labels=1, max_water_level=5, collect="claims", backend="sweep")
+    field, seeds = _field(LOOP)
+    lab0 = torch.from_numpy(paint_seeds(field.shape, seeds))
+    with one_rank_group(tmp_path) as mesh:
+        for variant in VARIANTS:
+            got = tiled_transform(torch.from_numpy(field), lab0, mesh, n_labels=len(seeds), max_water_level=MAXLVL,
+                                  merging=variant == "merging", backend="relax")
+            np.testing.assert_array_equal(got.numpy(), _builder(variant).transform(field, seeds))

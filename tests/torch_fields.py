@@ -1,5 +1,6 @@
 """Label planes shared by the port's tests and ``chip_smoke.py``.  NumPy only:
-no JAX, no torch."""
+no JAX, no torch (``morph_field`` imports the port's ``utils.fields`` when
+it is called)."""
 
 import numpy as np
 
@@ -51,3 +52,23 @@ def corridor(h=41, w=38, lvl=5):
         if y + 2 < h - 1:
             img[y + 1, w - 2 if i % 2 == 0 else 1] = lvl
     return img
+
+
+MORPH_SEED = 20260820
+
+
+def morph_field(shape=(1024, 1024), seed=MORPH_SEED):
+    """``tools/gen_golden_morph.py``'s ``build_field`` before quantisation,
+    on the port's ``utils.fields``: a smoothed Gaussian random field with
+    per-pixel noise of 2% of its range, shifted positive, NaN in blobs over
+    12% of the plane.  ``golden_morph_v1.npz["img"]`` is this field at
+    1024² through ``pre_processor_with_max(., 20)``."""
+    from rustronomy_watershed_tpu_torch.utils import fields
+
+    base = fields.gaussian_random_field(shape, power=-2.0, seed=seed)
+    sm = fields.smooth(base, fwhm=24.0)
+    rng = np.random.default_rng(seed + 2)
+    sm = sm + 0.02 * (sm.max() - sm.min()) * rng.standard_normal(shape)
+    sm = sm - sm.min() + 0.05 * (sm.max() - sm.min())
+    sm[fields.blob_mask(shape, frac=0.12, n_blobs=8, seed=seed + 1)] = np.nan
+    return sm

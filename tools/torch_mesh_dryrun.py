@@ -10,9 +10,11 @@ package: each size spawns that many gloo processes
 * a ``("batch", "y", "x")`` mesh of (n / 4, 2, 2), where n divides by 4:
   ``tiled_transform(axis_batch='batch')`` of two images a batch group,
   merging with ``collect='sizes'`` (the level sweep on the flood kernel's
-  twin) and segmenting with ``collect='history'`` (the packed engine);
+  twin) and segmenting with ``collect='history'`` (the packed engine and
+  JAX's jnp engine ``backend='relax'``);
 * the spatial mesh (the most-square power-of-two ``ny x nx``, as the JAX
-  dry run takes): the non-divisible (37, 45) field, both variants;
+  dry run takes): the non-divisible (37, 45) field, both variants, on the
+  packed and the ``'relax'`` engine;
   ``MeshLevelStepper`` stepped by hand against the whole transform; the
   round invariant, at most one exchange round over 1 x 1 (``with_stats``
   on a 256^2 field); and through the builder, with edge correction, the
@@ -89,14 +91,17 @@ def rank_main(rank: int, n: int, data: dict) -> dict:
         kw = dict(n_labels=data["n_seeds"], max_water_level=BATCH_LVL, halo=2, axis_batch="batch")
         out["batch sizes"] = tuple(a.numpy() for a in tiled_transform(
             t(data["imgs"]), t(data["labels0"]), bmesh, merging=True, collect="sizes", **kw))
-        out["batch history"] = tuple(a.numpy() for a in tiled_transform(
-            t(data["imgs"]), t(data["labels0"]), bmesh, collect="history", backend="packed", **kw))
+        for backend in ("packed", "relax"):
+            out[("batch history", backend)] = tuple(a.numpy() for a in tiled_transform(
+                t(data["imgs"]), t(data["labels0"]), bmesh, collect="history", backend=backend, **kw))
     smesh = DeviceMesh("cpu", torch.arange(n).reshape(spatial(n)), mesh_dim_names=("y", "x"))
     one = DeviceMesh("cpu", torch.arange(1).reshape(1, 1), mesh_dim_names=("y", "x"))
     nd_lab0 = t(paint_seeds(ND_SHAPE, data["nd_seeds"]))
     for merging in (False, True):
-        out[("nd", merging)] = tiled_transform(t(data["nd"]), nd_lab0, smesh, n_labels=3, max_water_level=ND_LVL,
-                                               merging=merging, halo=2).numpy()
+        for backend in ("packed", "relax"):
+            out[("nd", merging, backend)] = tiled_transform(t(data["nd"]), nd_lab0, smesh, n_labels=3,
+                                                            max_water_level=ND_LVL, merging=merging, halo=2,
+                                                            backend=backend).numpy()
     stepper = MeshLevelStepper(smesh, n_labels=3, merging=True)
     img_p, lab = stepper.prepare(t(data["nd"]), nd_lab0)
     rounds = []
@@ -149,14 +154,15 @@ def run(n: int, root: str) -> str:
     parts = []
     if data["nb"]:
         kw = dict(n_labels=data["n_seeds"], max_water_level=BATCH_LVL, device="cpu")
-        for key, merging, collect in (("batch sizes", True, "sizes"), ("batch history", False, "history")):
+        for key, merging, collect in (("batch sizes", True, "sizes"), (("batch history", "packed"), False, "history"),
+                                      (("batch history", "relax"), False, "history")):
             want = [run_levels_impl(a, b, merging=merging, collect=collect, backend="relax", **kw)
                     for a, b in zip(data["imgs"], data["labels0"])]
             labels, stack = res[0][key]
             expect(same(labels, np.stack([w[0].numpy() for w in want])), f"{key} labels at {n} ranks")
             expect(same(stack, np.stack([w[1].numpy() for w in want], axis=1)), f"{key} statistics at {n} ranks")
         parts.append(f"batch mesh {(data['nb'], 2, 2)}: {len(data['imgs'])} images, sizes {res[0]['batch sizes'][1].shape}"
-                     f", history {res[0]['batch history'][1].shape} ok")
+                     f", history {res[0][('batch history', 'relax')][1].shape} on the packed and the relax engine ok")
     ny, nx = spatial(n)
     from rustronomy_watershed_tpu_torch.ops.seeds import paint_seeds
 
@@ -164,7 +170,9 @@ def run(n: int, root: str) -> str:
     for merging in (False, True):
         want = run_levels_impl(data["nd"], nd_lab0, n_labels=3, max_water_level=ND_LVL, merging=merging,
                                backend="relax", device="cpu").numpy()
-        expect(same(res[0][("nd", merging)], want), f"non-divisible {ND_SHAPE} merging={merging} at {n} ranks")
+        for backend in ("packed", "relax"):
+            expect(same(res[0][("nd", merging, backend)], want),
+                   f"non-divisible {ND_SHAPE} merging={merging} backend={backend} at {n} ranks")
     expect(same(res[0]["stepper"][0], want), f"the per-level stepper at {n} ranks")
     r11, rs = res[0][("rounds", "1x1")], res[0][("rounds", "spatial")]
     expect(all(r[("rounds", "spatial")] == rs for r in res), f"the ranks disagree on the rounds at {n} ranks")
@@ -181,7 +189,7 @@ def run(n: int, root: str) -> str:
            "edge-corrected transform_to_list")
     expect(same(res[0]["edge history"], single("segmenting").transform_history(pub, pub_seeds)),
            "edge-corrected transform_history")
-    parts.append(f"spatial {ny}x{nx}: non-divisible {ND_SHAPE} ok, per-level stepper ok (rounds "
+    parts.append(f"spatial {ny}x{nx}: non-divisible {ND_SHAPE} ok on both relax engines, per-level stepper ok (rounds "
                  f"{res[0]['stepper'][1]}), exchange rounds {rs} against {r11} on 1x1, edge-corrected transform, "
                  "to_list and history ok")
     return f"torch_mesh_dryrun OK [{n} ranks, {wall:.1f} s]: " + "; ".join(parts)

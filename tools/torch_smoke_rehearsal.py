@@ -18,9 +18,13 @@ kernel's host loop on the cut golden_morph_v1, the random tie-break on a
 Phases 21-23 (the relax kernel's centre rectangle, the one-rank mesh on
 gloo instead of NCCL, the 2 x 2 gloo mesh and the (2, 1, 2) batch mesh
 whose four ranks run the twins; the per-level API and the host loop on the
-cut golden_morph_v1 and its quadrants) run on the cut fields; ``--mesh``
-runs phases 1, 2 and 21-23 alone (their inputs made as main() makes them),
-in a few minutes.
+cut golden_morph_v1 and its quadrants; ``backend='relax'`` on both meshes)
+run on the cut fields; ``--mesh`` runs phases 1, 2 and 21-23 alone (their
+inputs made as main() makes them), in a few minutes, ``--late`` phases 24
+and 25 alone.  Phase 24 (tracing)
+runs in its own process on the CPU (its trace holds no device kernel, so
+the kernel counts are held at 0), phase 25 on the morphology field at
+256^2 with a 48^2 corner.
 """
 
 from __future__ import annotations
@@ -40,6 +44,13 @@ CUTS = [
     ('WIDE = (2048, BIG)', 'WIDE = (64, BIG)'),
     ('TALL = (9001, 700)', 'TALL = (301, 70)'),
     ('PAST_CAP = (300, 18440)', 'PAST_CAP = (7, 18440)'),
+    ('MORPH, MORPH_CROP, MORPH_SEED, MORPH_MAX = 4096, 256,', 'MORPH, MORPH_CROP, MORPH_SEED, MORPH_MAX = 256, 48,'),
+    # Phase 24's process has no fakes: its transforms run the twins on the
+    # CPU, whose trace holds no device kernel.
+    ('        check(n == per * routes[counter] > 0, f"the trace holds', '        check(n == 0, f"the trace holds'),
+    ('    check(routes["pack_vec"] == routes["pack"]', '    check(routes["pack_plain"] > 0'),
+    ('    check((n2 > 0 and not second["warnings"]) or (n2 == 0 and warned2',
+     '    check((n2 == 0 and not second["warnings"]) or (n2 == 0 and warned2'),
     ('    split, rsplit = {}, {}\n', '    split, rsplit = {"column scan": 1.0, "row kernel": 1.0}, '
      '{"v-pass forward": 1.0, "v-pass backward": 1.0, "h-pass": 1.0}  # no device trace on the CPU\n'),
     ('    packs = [e.time_range.elapsed_us() / 1e3 for e in on_card if "pack_bands" in e.name]\n',
@@ -246,12 +257,16 @@ def main() -> int:
     mod.__file__ = path
     exec(compile(src, path, "exec"), mod.__dict__)
     mod.gpu_line = lambda: "rehearsal (CPU), no power limit"
-    # The 2x2 mesh's spawned ranks import their function by name: take it
-    # from chip_smoke.py itself (this module exists in this process only).
+    # The spawned processes (the 2x2 mesh's ranks, phase 24, phase 25's
+    # references) import their function by name: take it from chip_smoke.py
+    # itself (this module exists in this process only).
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    mod.mesh_rank = importlib.import_module("chip_smoke").mesh_rank
+    smoke = importlib.import_module("chip_smoke")
+    mod.mesh_rank, mod.traced_rank, mod.morph_reference = smoke.mesh_rank, smoke.traced_rank, smoke.morph_reference
     if "--mesh" in sys.argv[1:]:
         return mesh_only(mod)
+    if "--late" in sys.argv[1:]:
+        return late_only(mod)
     return mod.main()
 
 
@@ -288,6 +303,28 @@ def mesh_only(mod) -> int:
         ws=ws, v=v, key0=key0, lab0=lab0, img_np=img_np, dots=dots, pimg=pimg, pseeds=ws.find_local_minima(pimg),
     ))
     print(out)
+    return 0
+
+
+def late_only(mod) -> int:
+    """Phases 24-25 of the rehearsal alone."""
+    import numpy as np
+
+    from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
+
+    dev = torch.device("cpu")
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3
+
+    def builder(variant):
+        return getattr(TransformBuilder.default().set_device(dev), f"build_{variant}")()
+
+    mod.late_phases(types.SimpleNamespace(
+        dev=dev, gpu=mod.gpu_line(), to_dev=lambda a: torch.from_numpy(np.ascontiguousarray(a)), timed=timed,
+        builder=builder, ws=builder("segmenting"),
+    ))
     return 0
 
 
