@@ -32,7 +32,10 @@ both meshes), then ``utils.tracing.trace`` in a process of its own (the
 counters), the 4096^2 morphology field of ``tools/gen_golden_morph.py``'s
 recipe (labels against the native engine, a corner against the NumPy
 oracle, both computed in two processes of their own; ``pre_process_jnp`` on
-the card against the CPU), and times the card.
+the card against the CPU), then the relax kernel's y0 epilogue
+(``fwd_scan=True``: the first call at 4096^2 and 16384^2 against the twin,
+timed plain, with statistics and with y0; how often call 1 certifies; the
+fine tail from y0), and times the card.
 One line per phase; the line before the last is the kernel table as JSON,
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
 the run exits non-zero; without CUDA it exits non-zero at once.  Imports
@@ -811,6 +814,106 @@ def late_phases(c) -> None:
     shutil.rmtree(morph["dir"])
 
 
+def y0_phase(c) -> dict:
+    """Phase 26: the relax kernel's y0 epilogue (``fwd_scan=True``), the
+    Hopper counterpart of tools/probe_epilogue.py.  The first relax call at
+    4096^2 and 16384^2 (``c.planes``, ``c.planes16``: packed uniform and
+    10%-dot planes) held against the twin and its y0 against ``fwd_v_plain``
+    of its labels, and timed three ways (plain, statistics, y0); how often
+    call 1 certifies at the default steps on the 4096^2 fields
+    (``c.fields``); on the fields and steps where it certifies, the fine
+    tail from y0 against the tail without it (labels, rounds, one ``fwd_v``
+    fewer), the path's launches counted on their own.  Returns the
+    ``relax_y0`` row's numbers."""
+    import torch
+
+    from rustronomy_watershed_tpu_torch import _ext
+    from rustronomy_watershed_tpu_torch.ops import pack, relax
+    from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
+
+    s, gpu, err = relax.DEFAULT_STEPS, c.gpu, 0
+    out = {}
+    for side, (v, key, lab), reps, plain_reps in ((SIDE, c.planes, 20, 5), (BIG, c.planes16, 10, 3)):
+        got = relax.relax_block_kernel(v, key, lab, s, fwd_scan=True)
+        want = relax.relax_block_plain(v, key, lab, s, fwd_scan=True)
+        torch.cuda.synchronize()
+        e = max(max_err(got, want), max_err(got[3:], (sm.fwd_v_plain(got[1])[0],)))
+        check(e == 0, f"relax y0 kernel == twin (planes, flags, y0) and y0 == fwd_v_plain of its labels at {side}^2")
+        err = max(err, e)
+        del got, want
+        t = {name: c.median_ms(lambda kw=kw: relax.relax_block_kernel(v, key, lab, s, **kw), reps)
+             for name, kw in (("plain", {}), ("statistics", {"stats": True}), ("y0", {"fwd_scan": True}))}
+        t["twin"] = c.median_ms(lambda: relax.relax_block_plain(v, key, lab, s, fwd_scan=True), plain_reps)
+        n = side * side
+        t["bound"] = bound(n * (1 + 8 + 8 + 4), n * s * 25)
+        out[side] = t
+        print(f"[26 y0] {side}^2 first relax call of {s} sweeps: y0 bit-equal to the twin and to fwd_v_plain of its "
+              f"labels; plain {t['plain']:.4f} ms, statistics {t['statistics']:.4f} ms, y0 {t['y0']:.4f} ms "
+              f"(median of {reps}, CUDA events), twin {t['twin']:.3f} ms, bound {t['bound'][0]:.4f} ms "
+              f"({t['bound'][1]}); gpu={gpu}")
+
+    # How often call 1 certifies, at the default steps and above.
+    certified = []
+    for label, a in c.fields.items():
+        vv, kk, ll, _ = pack.pack_kernel(c.to_dev(a))
+        found = []
+        for steps in (s, 16, 32, 48):  # past 48 the 128^2 windows' centres shrink below 32^2
+            calls, first = [], []
+
+            def seen(src, dst, flags, skipped, calls=calls, first=first):
+                calls.append(skipped)
+                if not first:
+                    first.append(dst[1].clone())
+
+            *_, y0, valid = relax.relax_fixed_point(vv, kk.clone(), ll.clone(), steps=steps, fwd_scan=True,
+                                                    on_call=seen)
+            e = max_err((y0,), (sm.fwd_v_plain(first[0])[0],))
+            check(e == 0 and calls[0] == 0, f"{label} steps={steps}: y0 == fwd_v_plain of call 1's labels")
+            err = max(err, e)
+            found.append(f"steps {steps}: {len(calls)} calls, y0_valid {valid}")
+            if valid:
+                certified.append((label, a, steps))
+                break
+        print(f"[26 y0] {label}: " + "; ".join(found) + f"; gpu={gpu}")
+    check(any(lbl.startswith("cone") for lbl, _, _ in certified), "call 1 certifies on the cone lattice")
+    n_valid = sum(1 for _, _, st in certified if st == s)
+    print(f"[26 y0] y0_valid at the default steps ({s}): {n_valid} of {len(c.fields)} {SIDE}^2 fields")
+
+    # The fwd_scan path where call 1 certifies: relax_packed_planes, then the
+    # fine tail from y0, its launches counted on their own; then the tail
+    # without y0 on the same labels.
+    launches = 0
+    for label, a, steps in certified:
+        img = c.to_dev(a)
+        _ext.reset_launches()
+        _, lab_f, _, _, y0, valid = relax.relax_packed_planes(img, None, steps=steps, device=img.device,
+                                                              fwd_scan=True)
+        y0_kept = y0.clone()  # the tail writes over the y0 it starts from
+        got, rounds = sm.component_min_labels(lab_f, y0=y0, y0_valid=valid)
+        torch.cuda.synchronize()
+        counts = dict(_ext.launches)
+        _ext.reset_launches()
+        want, rounds_w = sm.component_min_labels(lab_f)
+        torch.cuda.synchronize()
+        plain_counts = dict(_ext.launches)
+        check(valid and counts["relax_y0"] == 1 and counts["relax"] >= 1, f"{label}: the fused path ran the y0 epilogue")
+        check(sum(counts[f"{k}_plain"] for k in _ext.KERNELS) == 0, f"{label}: no plain twin on the fused path")
+        check(torch.equal(got, want) and rounds == rounds_w, f"{label}: the tail from y0 == the tail without it")
+        check(counts["fwd_v"] == plain_counts["fwd_v"] - 1 and counts["bwd_vh"] == plain_counts["bwd_vh"],
+              f"{label}: one fwd_v launch fewer from y0")
+        launches += counts["relax_y0"]
+        # The tail from y0 writes over it: both timings copy y0 first.
+        tail_y0 = c.median_ms(lambda: sm.component_min_labels(lab_f, y0=y0_kept.clone(), y0_valid=True), 9)
+        tail = c.median_ms(lambda: (y0_kept.clone(), sm.component_min_labels(lab_f)), 9)
+        print(f"[26 y0] {label}, steps {steps}: relax_packed_planes(fwd_scan=True) + component_min_labels(y0=) "
+              f"== the tail without y0 ({rounds} rounds, fwd_v {counts['fwd_v']} against {plain_counts['fwd_v']}); "
+              f"tail {tail_y0:.4f} ms from y0, {tail:.4f} ms without (a copy of y0 in both); launches "
+              f"{ {k: n for k, n in counts.items() if n} }; "
+              f"gpu={gpu}")
+    return {"err": err, "launches": launches, "ms": out[SIDE]["y0"], "plain_ms": out[SIDE]["twin"],
+            "bound": out[SIDE]["bound"], "times": out}
+
+
 def main() -> int:
     import torch
 
@@ -829,7 +932,7 @@ def main() -> int:
     from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
-    from torch_fields import plateau, poisson_u8, seed_lattice, serpentine  # NumPy only
+    from torch_fields import cone_lattice, plateau, poisson_u8, seed_lattice, serpentine  # NumPy only
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1685,6 +1788,11 @@ def main() -> int:
         for _ in range(10):
             skip_call()
         torch.cuda.synchronize()
+        for planes, reps in (((v, key0, lab0), 10), ((v16, key16, lab16_0), 5)):  # relax: plain, statistics, y0
+            for kw in ({}, {"stats": True}, {"fwd_scan": True}):
+                for _ in range(reps):
+                    relax.relax_block_kernel(*planes, s, **kw)
+            torch.cuda.synchronize()
         sweep_first = []
         flood_level_sweep(img, fresh.clone(), lambda lvl_, first, *call: sweep_first.append(first))
         torch.cuda.synchronize()
@@ -1718,9 +1826,16 @@ def main() -> int:
     vcols = [e.time_range.elapsed_us() / 1e3 for e in on_card if "v_pass<true, false>" in e.name]
     hwins = [e.time_range.elapsed_us() / 1e3 for e in on_card if "hwin_ring" in e.name]
     check(len(cfwds) == 10 and len(vcols) == len(hwins) == 20, "the profiler saw the legacy round's launches")
+    relax_dev = {}  # relax_kernel<stats, rect, scan>: 10 launches at 4096^2, then 5 at 16384^2
+    for kind, tmpl in (("plain", "relax_kernel<false, false, false>"), ("statistics", "relax_kernel<true, false, false>"),
+                       ("y0", "relax_kernel<true, false, true>")):
+        ts = [e.time_range.elapsed_us() / 1e3 for e in on_card if tmpl in e.name]
+        check(len(ts) == 15, f"the profiler saw the relax kernel's {kind} launches")
+        relax_dev[kind] = (float(np.median(ts[:10])), float(np.median(ts[10:])))
     leg = {"cfwd_v": float(np.median(cfwds)), "column pass": float(np.median(vcols)),
            "ring row pass windowed": float(np.median(hwins[:10])), "ring row pass full width": float(np.median(hwins[10:]))}
     dev_ms = {"pack": float(np.median(packs[:10])), "pack 16384": float(np.median(packs[10:])),
+              "relax": relax_dev["plain"][0], "relax2d": relax_dev["plain"][1], "relax_y0": relax_dev["y0"][0],
               "coarsen": float(np.median(coarsens)), "flood": float(np.median(floods[:10])),
               "coarse_broadcast": float(np.median(bcasts)), "cfwd_v": leg["cfwd_v"],
               "cbwd_vh": leg["column pass"] + leg["ring row pass windowed"]}
@@ -1746,8 +1861,11 @@ def main() -> int:
           f"calls {float(np.mean(later_dev)) if later_dev else 0.0:.4f} ms mean; broadcast {SIDE}^2 "
           f"{dev_ms['coarse_broadcast']:.4f} ms (median of 10); CUDA events around one call: {flood_ms:.4f}, "
           f"{skip_ms:.4f} and {bcast_ms:.4f} ms; gpu={gpu}")
+    print(f"[19 time] relax_kernel device time (torch.profiler, median of 10 at {SIDE}^2, 5 at {BIG}^2), plain / "
+          f"statistics / y0: " + ", ".join(f"{k} {a:.4f} / {b:.4f} ms" for k, (a, b) in relax_dev.items())
+          + f"; gpu={gpu}")
     del round_in, round_scratch, c_fin, leg_in, leg_scratch
-    del big, exact16, v16, key16, lab16_0, y16, scratch16, lab16, dots16_dev
+    del big, exact16, y16, scratch16, lab16, dots16_dev  # v16, key16, lab16_0 serve phase 26
 
     # How the fine passes scale with the side, on one label draw per side.
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1981,12 +2099,22 @@ def main() -> int:
 
     late_phases(types.SimpleNamespace(dev=dev, gpu=gpu, to_dev=to_dev, timed=timed, builder=builder, ws=ws))
 
+    y0 = y0_phase(types.SimpleNamespace(
+        gpu=gpu, to_dev=to_dev, median_ms=median_ms, planes=(v, key0, lab0), planes16=(v16, key16, lab16_0),
+        fields={"uniform": img_np, "10% dots": dots, "seed lattice": seed_lattice((SIDE, SIDE)),
+                "cone lattice": cone_lattice((SIDE, SIDE))},
+    ))
+    print(f"[26 y0] relax_kernel device time (phase 19's profiler session): y0 {dev_ms['relax_y0']:.4f} ms at "
+          f"{SIDE}^2, {relax_dev['y0'][1]:.4f} ms at {BIG}^2; gpu={gpu}")
+    del v16, key16, lab16_0
+
     # Bytes each function must move at 4096^2 (each input read once, each
     # output written once) and the integer operations it does per cell.
     bounds = {
         "pack": bound(px * (1 + 1 + 4 + 4), px * 20),  # 8 compares + numbering per pixel
         "relax": relax_bound,
         "relax_ctr": mesh["bound"],  # at the 1x1 mesh's padded planes
+        "relax_y0": y0["bound"],  # relax's planes and the y0 plane out
         "coarsen": bound(px * 4 + cells * 4, cells * 40),
         "coarse_round": round_bound,
         "coarse_broadcast": bound(px * 4 + cells * 4 + px * 4, px * 6),
@@ -2019,6 +2147,8 @@ def main() -> int:
          legacy_counts["cbwd_vh"], legacy_err["cbwd_vh"], *pass_ms["cbwd_vh"]),
         ("relax_ctr", "csrc/relax.cu", "rustronomy_watershed_tpu/ops/pallas_relax.py:268",
          mesh["launches"], mesh["err"], mesh["ms"], mesh["plain_ms"]),
+        ("relax_y0", "csrc/relax.cu", "rustronomy_watershed_tpu/ops/pallas_relax.py:541 (and :1134)",
+         y0["launches"], y0["err"], y0["ms"], y0["plain_ms"]),
     ]
     kernels = []
     for kname, src, replaces, n, err, ms, plain_ms in rows:
@@ -2030,9 +2160,9 @@ def main() -> int:
             library_ms=None,  # no single PyTorch call computes any of these functions
         ))
         device = f", device {dev_ms[kname]:.4f} ms (profiler)" if kname in dev_ms else ""
-        print(f"[26 bound] {kname}: {ms:.4f} ms{device} against a bound of {b_ms:.4f} ms ({b_by}); gpu={gpu}")
+        print(f"[27 bound] {kname}: {ms:.4f} ms{device} against a bound of {b_ms:.4f} ms ({b_by}); gpu={gpu}")
     pb_ms, pb_by = big_bounds["pack"]
-    print(f"[26 bound] pack {BIG}^2: {big_ms['pack'][0]:.4f} ms, device {dev_ms['pack 16384']:.4f} ms (profiler) "
+    print(f"[27 bound] pack {BIG}^2: {big_ms['pack'][0]:.4f} ms, device {dev_ms['pack 16384']:.4f} ms (profiler) "
           f"against a bound of {pb_ms:.4f} ms ({pb_by}); plain {big_ms['pack'][1]:.3f} ms; gpu={gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

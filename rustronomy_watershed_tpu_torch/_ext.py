@@ -29,7 +29,8 @@ the tiles whose sweeps those calls skipped (``flood_tiles_skipped``) and,
 of those, the tiles that copied their centre to keep the ping-pong planes
 in sync (``flood_tiles_copied``).  ``relax_ctr`` counts the relax launches
 whose flags cover a centre rectangle smaller than the plane (a mesh tile's,
-parallel/tiled.py).
+parallel/tiled.py), ``relax_y0`` those that ran the y0 epilogue
+(``fwd_scan=True``).
 """
 
 from __future__ import annotations
@@ -79,6 +80,7 @@ launches = {
     "flood_tiles_skipped": 0,
     "flood_tiles_copied": 0,
     "relax_ctr": 0,
+    "relax_y0": 0,
 }
 
 _lib = None
@@ -179,7 +181,7 @@ def lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         L.rwt_pack.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         L.rwt_pack.restype = I
-        L.rwt_relax.argtypes = [P] * 10 + [I] * 14 + [P]
+        L.rwt_relax.argtypes = [P] * 12 + [I] * 14 + [P]
         L.rwt_relax.restype = I
         L.rwt_coarsen.argtypes = [P, P, I, I, I, I, I, I, I, P]
         L.rwt_coarsen.restype = I

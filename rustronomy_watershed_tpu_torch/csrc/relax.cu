@@ -6,13 +6,40 @@
 // `_relax_kernel2d` (column stripes with a 128-lane halo for widths >= 5120,
 // launched by `relax_block2d`).  Both compute the same function: the
 // per-sweep update of pallas_relax.py:413-438, the change flags, the
-// convergence witness, the d-saturation detector and (with `stats`) the
-// stats-only epilogue of pallas_relax.py:575-604.  The 2-D tiles below serve
-// every width, so the stripe geometry (`resolve_stripe_config`,
-// RWT_RELAX_STRIPES) was TPU tuning and is not carried over; the Jacobi
-// ping-pong and centre-only writes are the striped kernel's design.  Not
-// carried over either: the fused-scan epilogue and the in-place aliased band
+// convergence witness, the d-saturation detector, (with `stats`) the
+// stats-only epilogue of pallas_relax.py:575-604 and (with a y0 plane) the
+// fused forward-scan epilogue of pallas_relax.py:541-580 and :1134-1212.
+// The 2-D tiles below serve every width, so the stripe geometry
+// (`resolve_stripe_config`, RWT_RELAX_STRIPES) was TPU tuning and is not
+// carried over; the Jacobi ping-pong and centre-only writes are the striped
+// kernel's design.  Not carried over either: the in-place aliased band
 // DMAs.  Index arithmetic is in size_t.
+//
+// The y0 epilogue (`kScan`, which implies `kStats`): y0 is pass 1 of the
+// fine component-min tail on this call's output label plane, the forward
+// vertical segmented min scan (0 a barrier, border columns copied through;
+// csrc/scan_round.cu `vscan_tiles<false, ., true>`).  The TPU ran its bands
+// in order and carried each column's running min across them in VMEM
+// scratch (`ycarry`); here the tiles run in parallel, so the carry comes by
+// a decoupled look-back.  A kScan block takes its tile from an atomic
+// ticket in row-major order (as csrc/pack.cu's bands do), so every tile it
+// waits on has started.  After the sweeps (a block that stopped early
+// included) each warp reduces its strip's centre rows per column to a scan
+// aggregate in registers; the aggregates cross the 16 warps in shared
+// memory; one thread per centre column combines them, publishes the tile's
+// aggregate, looks back over the tiles above it in its tile column (one at
+// a time, stopping at an inclusive prefix or a barrier) for the carry, and
+// publishes the inclusive prefix; then every strip scans its rows from
+// its carry and writes its y0 rows.  Only a call that runs every tile may
+// emit y0 (a skipped tile would publish nothing): the fixed point's first
+// call, which has no previous call's tile flags, so `chg_prev` and the
+// centre rectangle are refused with it.  The epilogue is a function
+// called out of line on a copy of the labels in local memory: inlined, with
+// the labels held in registers across its barriers, it made the sweep loop
+// spill (ptxas: 340 / 480 bytes against the statistics kernel's 60 / 96)
+// and the call about 1.4 times as long on an H100.  The look-back is simple (a tile at a time), not tuned: the
+// epilogue's barriers and device-memory round trips are not hidden, one
+// block running per SM (PERF.md).
 //
 // The centre rectangle `[ctr_y0, ctr_y1) x [ctr_x0, ctr_x1)`, in plane
 // coordinates, is the counterpart of `_relax_kernel`'s `ctr_cols=(lo, hi)`
@@ -69,7 +96,8 @@
 //     bit and the statistics as per-tile partials (written when a tile
 //     runs, kept when it is skipped), reduced over all tiles by a second
 //     one-block launch.  `stats` is a template parameter: the segmenting
-//     instantiation holds no statistics code.
+//     instantiation holds no statistics code, and the merging one no y0
+//     code (`kScan`: 4 B a cell more out, the labels already in registers).
 // The strip depth and the warps per block come from the launch plan in
 // ops/relax.py (relax_plan): strips of 8 rows in 16 warps, a 128 x 128
 // window, 112 x 112 centre tiles at 8 steps.  On an H100 strips of 4 rows
@@ -90,29 +118,148 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kR = 8;              // rows of a thread's strip
 constexpr int kMaxThreads = 512;   // 16 warps: a 128 x 128 window, 128 registers a thread
 
+// The y0 epilogue's scan elements, as csrc/scan_round.cu's fine passes: a
+// value (a label, or kInf for none) in bits 0..29 and "a segment starts
+// here" in bit 30; comb(a, b) is the segmented min, a then b in scan order,
+// with kInf its identity.
+constexpr int kSeg = 1 << 30;
+constexpr int kSegVal = kSeg - 1;
+
+__device__ __forceinline__ int comb(int a, int b) {
+  return (b & kSeg) ? b : (min(a & kSegVal, b) | (a & kSeg));
+}
+
+// A status word holds its flag and its element together, so the look-back
+// needs no ordering against other data: relaxed loads and stores at device
+// scope (release and acquire cost a fence and an L1 invalidation each).
+__device__ __forceinline__ unsigned long long ld_relaxed64(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed64(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// The y0 epilogue of one block (see the header): `l` the strip's labels,
+// `s_agg` shared memory for the strips' aggregates ([warp][window column]),
+// `wx0` the plane column of window column 0, `y0` the strip's first row.
+__device__ __noinline__ void fwd_scan_epilogue(const int (&l)[kR][kCols], int* s_agg, int32_t* __restrict__ y0_out,
+                                               unsigned long long* status, int h, int w, int S, int nw, int ty,
+                                               int wx0, int y0, bool vec_c) {
+  __shared__ int s_cin[kWinX];  // the carry into the tile per window column
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, WY = nw * kR;
+  const int xw = lane * kCols, x0 = wx0 + xw;
+  // The centre rows of this strip that lie in the plane.
+  unsigned rows = 0;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int yy = wid * kR + r;
+    rows |= (yy >= S && yy < WY - S && y0 + r < h) ? 1u << r : 0u;
+  }
+  // Each strip's aggregate per window column.
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    int a = kInf;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if (!((rows >> r) & 1u)) continue;
+      const int c = l[r][j];
+      a = c == 0 ? (kInf | kSeg) : comb(a, c);
+    }
+    s_agg[wid * kWinX + xw + j] = a;
+  }
+  __syncthreads();
+  if (threadIdx.x < kWinX) {
+    const int c = threadIdx.x, gx = wx0 + c;
+    int cin = kInf;
+    if (c >= S && c < kWinX - S && gx < w) {
+      int agg = kInf;
+      for (int q = 0; q < nw; ++q) agg = comb(agg, s_agg[q * kWinX + c]);
+      unsigned long long* col = status + 1 + gx;  // tile row k's word at col[k * w]
+      if (ty > 0) {
+        st_relaxed64(col + (size_t)ty * w, (1ull << 32) | (unsigned)agg);
+        int acc = kInf;  // the tiles between k and this one, in scan order
+        for (int k = ty - 1; k >= 0 && !(acc & kSeg); --k) {
+          unsigned long long s;
+          while (((s = ld_relaxed64(col + (size_t)k * w)) >> 32) == 0) {
+          }
+          acc = comb((int)(unsigned)s, acc);
+          if ((s >> 32) == 2) break;
+        }
+        cin = acc & kSegVal;
+      }
+      st_relaxed64(col + (size_t)ty * w, (2ull << 32) | (unsigned)(comb(cin, agg) & kSegVal));
+    }
+    s_cin[c] = cin;
+  }
+  __syncthreads();
+  // The strip's carry: the tile's, then the strips above; then its rows.
+  int f[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    f[j] = s_cin[xw + j];
+    for (int q = 0; q < wid; ++q) f[j] = comb(f[j], s_agg[q * kWinX + xw + j]);
+    f[j] &= kSegVal;
+  }
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    if (!((rows >> r) & 1u)) continue;
+    int o[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = l[r][j], gx = x0 + j;
+      f[j] = c == 0 ? kInf : min(f[j], c);
+      o[j] = (c == 0 || gx == 0 || gx == w - 1) ? c : f[j];
+    }
+    const size_t g = (size_t)(y0 + r) * w;
+    if (vec_c) {
+      *reinterpret_cast<int4*>(y0_out + g + x0) = make_int4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        if (xw + j >= S && xw + j < kWinX - S && x0 + j < w) y0_out[g + (x0 + j)] = o[j];
+    }
+  }
+}
+
 // Shared-memory rows of one block: [sweep parity][warp][top key, top label,
-// bottom key, bottom label][lane], one int4 (four columns) each.
-template <bool kStats, bool kRect>
+// bottom key, bottom label][lane], one int4 (four columns) each; with kScan,
+// after the sweeps, the strips' scan aggregates [warp][window column].
+// status (kScan): [ticket, then one word per tile row and plane column:
+// flag << 32 | scan element], zero at launch; flag 1 = the tile's
+// aggregate, 2 = the inclusive prefix (a value, kInf for none).
+template <bool kStats, bool kRect, bool kScan>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
              const int32_t* __restrict__ lab_in, int32_t* __restrict__ key_out,
              int32_t* __restrict__ lab_out, int32_t* __restrict__ flags,
              const int32_t* __restrict__ chg_prev, int32_t* __restrict__ chg,
-             int32_t* __restrict__ part, int h, int w, int steps, int d_bits,
-             int tile_y, int tile_x, int4 rect, int vec) {
+             int32_t* __restrict__ part, int32_t* __restrict__ y0_out, unsigned long long* status,
+             int h, int w, int steps, int d_bits, int tile_y, int tile_x, int4 rect, int vec) {
+  static_assert(!kScan || (kStats && !kRect), "the y0 epilogue runs with the statistics on the whole plane");
   extern __shared__ int4 xrow[];
   __shared__ int s_red[2];  // with stats: unclaimed interior cells, least claimed interior label
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int S = steps, WY = nw * kR;
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  int ty = blockIdx.y, tx = blockIdx.x;
+  if constexpr (kScan) {  // tiles in ticket order: every tile above this one has started
+    __shared__ int s_tile;
+    if (threadIdx.x == 0) s_tile = (int)atomicAdd(reinterpret_cast<unsigned*>(status), 1u);
+    __syncthreads();
+    ty = s_tile / (int)gridDim.x;
+    tx = s_tile - ty * (int)gridDim.x;
+  }
+  const int tile = ty * gridDim.x + tx;
   const int unclaimed = 255 << d_bits, d_mask = (1 << d_bits) - 1, vmul = 1 << d_bits;
 
   // A tile whose 3x3 neighbourhood changed nothing in the previous call.
   if (chg_prev != nullptr) {
     bool quiet = true;
     if (threadIdx.x < 9) {
-      const int ny = (int)blockIdx.y + (int)threadIdx.x / 3 - 1;
-      const int nx = (int)blockIdx.x + (int)threadIdx.x % 3 - 1;
+      const int ny = ty + (int)threadIdx.x / 3 - 1;
+      const int nx = tx + (int)threadIdx.x % 3 - 1;
       if (ny >= 0 && ny < (int)gridDim.y && nx >= 0 && nx < (int)gridDim.x)
         quiet = chg_prev[ny * gridDim.x + nx] != 1;
     }
@@ -128,8 +275,8 @@ relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
 
   // The strip: plane rows y0 .. y0+kR-1, columns x0 .. x0+3.
   const int xw = lane * kCols;  // window column of the first owned cell
-  const int y0 = (int)blockIdx.y * tile_y - S + wid * kR;
-  const int x0 = (int)blockIdx.x * tile_x - S + xw;
+  const int y0 = ty * tile_y - S + wid * kR;
+  const int x0 = tx * tile_x - S + xw;
   const bool vec_x = vec && x0 >= 0 && x0 < w && (x0 & 3) == 0;
   int k[kR][kCols], l[kR][kCols];
   uint32_t vb[kR];  // byte j: the value of column j
@@ -329,6 +476,15 @@ relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
     if constexpr (kStats) *p = make_int4(blk_sat, s_red[0], blk_border, s_red[1]);
     else *p = make_int4(blk_sat, 0, 0, kInf);
   }
+
+  if constexpr (kScan) {
+    int lc[kR][kCols];  // the copy in local memory (see the header)
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) lc[r][j] = l[r][j];
+    fwd_scan_epilogue(lc, reinterpret_cast<int*>(xrow), y0_out, status, h, w, S, nw, ty, tx * tile_x - S, y0, vec_c);
+  }
 }
 
 // The per-tile partials [sat, unclaimed interior, claimed border, least
@@ -377,18 +533,20 @@ relax_reduce(const int32_t* __restrict__ chg, const int4* __restrict__ part, int
   }
 }
 
-template <bool kStats, bool kRect>
+template <bool kStats, bool kRect, bool kScan>
 cudaError_t launch(const dim3& grid, int threads, size_t smem, cudaStream_t st, const void* v, const void* key_in,
                    const void* lab_in, void* key_out, void* lab_out, void* flags, const void* chg_prev, void* chg,
-                   void* part, int h, int w, int steps, int d_bits, int tile_y, int tile_x, int4 rect, int vec) {
-  auto kernel = relax_kernel<kStats, kRect>;
+                   void* part, void* y0, void* status, int h, int w, int steps, int d_bits, int tile_y, int tile_x,
+                   int4 rect, int vec) {
+  auto kernel = relax_kernel<kStats, kRect, kScan>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   kernel<<<grid, threads, smem, st>>>(
       static_cast<const uint8_t*>(v), static_cast<const int32_t*>(key_in), static_cast<const int32_t*>(lab_in),
       static_cast<int32_t*>(key_out), static_cast<int32_t*>(lab_out), static_cast<int32_t*>(flags),
-      static_cast<const int32_t*>(chg_prev), static_cast<int32_t*>(chg), static_cast<int32_t*>(part), h, w, steps,
-      d_bits, tile_y, tile_x, rect, vec);
+      static_cast<const int32_t*>(chg_prev), static_cast<int32_t*>(chg), static_cast<int32_t*>(part),
+      static_cast<int32_t*>(y0), static_cast<unsigned long long*>(status), h, w, steps, d_bits, tile_y, tile_x, rect,
+      vec);
   return cudaGetLastError();
 }
 
@@ -408,36 +566,49 @@ cudaError_t launch(const dim3& grid, int threads, size_t smem, cudaStream_t st, 
 // chg, which turns skipping on.  skipped (may be null): the number of tiles
 // skipped.  The centre rectangle [ctr_y0, ctr_y1) x [ctr_x0, ctr_x1) limits
 // the flags (not chg); a rectangle that is not the whole plane cannot be
-// combined with `stats`.  vec: w % 4 == 0 and the planes 16-byte (v 4-byte)
-// aligned.  Launches on `stream`, does not synchronise, returns
-// cudaGetLastError() (nonzero when a launch was refused).
+// combined with `stats`.  y0 (may be null): the y0 epilogue's (h, w) int32
+// plane, written here; it needs `stats`, the whole plane as the centre, no
+// chg_prev (every tile runs) and `scan_status`, the look-back's
+// 1 + ceil(h / tile_y) * w uint64 words (zeroed here).  vec: w % 4 == 0 and
+// the planes 16-byte (v 4-byte) aligned.  Launches on `stream`, does not
+// synchronise, returns cudaGetLastError() (nonzero when a launch was
+// refused).
 extern "C" int rwt_relax(const void* v, const void* key_in, const void* lab_in, void* key_out, void* lab_out,
-                         void* flags, const void* chg_prev, void* chg, void* part, void* skipped, int h, int w,
-                         int steps, int d_bits, int rows, int warps, int tile_y, int tile_x, int ctr_y0, int ctr_y1,
-                         int ctr_x0, int ctr_x1, int stats, int vec, void* stream) {
+                         void* flags, const void* chg_prev, void* chg, void* part, void* skipped, void* y0,
+                         void* scan_status, int h, int w, int steps, int d_bits, int rows, int warps, int tile_y,
+                         int tile_x, int ctr_y0, int ctr_y1, int ctr_x0, int ctr_x1, int stats, int vec,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool rect = ctr_y0 > 0 || ctr_y1 < h || ctr_x0 > 0 || ctr_x1 < w;
+  const bool scan = y0 != nullptr;
   if (rows != kR || warps < 1 || 32 * warps > kMaxThreads || steps < 1 ||
       tile_x != kWinX - 2 * steps || tile_y != warps * rows - 2 * steps || tile_x < 1 || tile_y < 1 ||
       part == nullptr || (chg_prev != nullptr && chg == nullptr) || (skipped != nullptr && chg == nullptr) ||
-      (rect && stats))
+      (rect && stats) || (scan && (!stats || chg_prev != nullptr || scan_status == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((w + tile_x - 1) / tile_x, (h + tile_y - 1) / tile_y);
   const int n_tiles = static_cast<int>(grid.x * grid.y);
   cudaError_t e = cudaMemsetAsync(flags, 0, (stats ? 6 : 3) * sizeof(int32_t), st);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (scan) {
+    e = cudaMemsetAsync(scan_status, 0, (1 + (size_t)grid.y * w) * sizeof(unsigned long long), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const size_t smem = (size_t)2 * warps * 4 * 32 * sizeof(int4);
   const int threads = 32 * warps;
   const int4 r = make_int4(ctr_y0, ctr_y1, ctr_x0, ctr_x1);
-  if (stats)
-    e = launch<true, false>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg, part,
-                            h, w, steps, d_bits, tile_y, tile_x, r, vec);
+  if (scan)
+    e = launch<true, false, true>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg,
+                                  part, y0, scan_status, h, w, steps, d_bits, tile_y, tile_x, r, vec);
+  else if (stats)
+    e = launch<true, false, false>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg,
+                                   part, y0, scan_status, h, w, steps, d_bits, tile_y, tile_x, r, vec);
   else if (rect)
-    e = launch<false, true>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg, part,
-                            h, w, steps, d_bits, tile_y, tile_x, r, vec);
+    e = launch<false, true, false>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg,
+                                   part, y0, scan_status, h, w, steps, d_bits, tile_y, tile_x, r, vec);
   else
-    e = launch<false, false>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg, part,
-                             h, w, steps, d_bits, tile_y, tile_x, r, vec);
+    e = launch<false, false, false>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev,
+                                    chg, part, y0, scan_status, h, w, steps, d_bits, tile_y, tile_x, r, vec);
   if (e != cudaSuccess) return static_cast<int>(e);
   relax_reduce<<<1, 1024, 0, st>>>(static_cast<const int32_t*>(chg), static_cast<const int4*>(part), n_tiles,
                                    static_cast<int32_t*>(flags), stats, static_cast<int32_t*>(skipped));

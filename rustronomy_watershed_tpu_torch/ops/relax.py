@@ -40,6 +40,15 @@ appends the merging shortcut's statistics of its output planes
 label != 0): ``[n_unclaimed_interior, any_claimed_border,
 min_claimed_interior_label]``, the last ``_INF`` when no interior cell is
 claimed.
+
+A call with ``fwd_scan=True`` (statistics implied) also returns ``y0``, pass
+1 of the fine component-min tail on its output label plane: the forward
+vertical segmented min scan, 0 a barrier, border columns kept
+(``scan_merge.fwd_v_scan``; the TPU kernels' fused-scan epilogue,
+pallas_relax.py:541-580 and :1134-1212).  On the card only a call that runs
+every tile may emit it: the fixed point's first, which has no previous call
+to skip quiet tiles by (``relax_fixed_point(fwd_scan=True)``, the
+counterpart of ``relax_fixed_point_fused``).
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import torch
 from .. import _ext
 from ..constants import _D_BITS, _INF, NEVER_FILL, UNCOLOURED
 from .pack import pack_domain, pack_domain_fused
+from .scan_merge import fwd_v_scan
 from .stencil import interior_mask, shift4
 
 DEFAULT_STEPS = 8
@@ -143,10 +153,21 @@ def merge_stats_plain(lab):
     ]
 
 
-def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, ctr=None):
+def _scan_args(stats: bool, ctr, fwd_scan: bool) -> bool:
+    """``stats`` as a call runs it: ``fwd_scan`` implies the statistics and
+    takes the whole plane, as the TPU kernel's fused epilogue (no
+    ``ctr_cols`` beside ``fused_scan``)."""
+    if fwd_scan and ctr is not None:
+        raise ValueError("fwd_scan=True takes the whole plane as its centre, not a rectangle")
+    return stats or fwd_scan
+
+
+def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, ctr=None, fwd_scan=False):
     """Plain PyTorch twin of the relax kernel: ``steps`` Jacobi sweeps.
-    Returns ``(key', lab', flags)``."""
+    Returns ``(key', lab', flags)``, and ``y0`` after them with
+    ``fwd_scan=True``: ``fwd_v`` of ``lab'``, exact for every call."""
     _ext.launches["relax_plain"] += 1
+    stats = _scan_args(stats, ctr, fwd_scan)
     d_bits, d_mask, unclaimed = _key_consts(d_bits)
     y0, y1, x0, x1 = _rect(ctr, *key.shape, stats)
     vcand = torch.clamp_max((v.to(torch.int32) << d_bits) + 1, unclaimed)
@@ -171,6 +192,8 @@ def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None, stats=F
         out[0].copy_(key)
         out[1].copy_(lab)
         key, lab = out
+    if fwd_scan:
+        return key, lab, flags, fwd_v_scan(lab)
     return key, lab, flags
 
 
@@ -194,12 +217,17 @@ class _Tiles:
         return prev, self.chg[k % 2]
 
 
-def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, tiles=None, ctr=None):
+def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, tiles=None, ctr=None,
+                       fwd_scan=False):
     """Launch csrc/relax.cu: ``steps`` Jacobi sweeps of CUDA planes into
     ``out`` (fresh planes when None; never the input planes).  ``tiles``
     (relax_fixed_point's state) lets the call skip the tiles that the
     previous call left quiet, and counts them after the flags in
-    ``tiles.buf``.  ``ctr`` limits the flags to a centre rectangle."""
+    ``tiles.buf``.  ``ctr`` limits the flags to a centre rectangle.
+    ``fwd_scan=True`` runs the y0 epilogue (counted as ``relax_y0``) and
+    returns ``y0`` after the flags; it raises on a call that may skip tiles
+    (one with a previous call in ``tiles``)."""
+    stats = _scan_args(stats, ctr, fwd_scan)
     d_bits, _, _ = _key_consts(d_bits)
     h, w = key.shape
     rect = _rect(ctr, h, w, stats)
@@ -229,11 +257,18 @@ def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=
             raise ValueError("relax tile state does not match this call")
         prev, chg = tiles.next_call()
         skipped = buf[n_flags:]
+    y0 = status = None
+    if fwd_scan:
+        if prev is not None:
+            raise ValueError("the y0 epilogue needs a call that runs every tile: the fixed point's first")
+        # The look-back's words: a ticket, then one per tile row and column.
+        y0 = torch.empty_like(lab)
+        status = torch.empty((1 + plan["grid"][0] * w,), dtype=torch.int64, device=key.device)
     vec = w % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in planes[1:]) and v.data_ptr() % 4 == 0
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _ext.lib().rwt_relax(
         v.data_ptr(), key.data_ptr(), lab.data_ptr(), key_out.data_ptr(), lab_out.data_ptr(),
-        buf.data_ptr(), ptr(prev), ptr(chg), part.data_ptr(), ptr(skipped), h, w, steps, d_bits,
+        buf.data_ptr(), ptr(prev), ptr(chg), part.data_ptr(), ptr(skipped), ptr(y0), ptr(status), h, w, steps, d_bits,
         plan["rows"], plan["warps"], plan["tile_y"], plan["tile_x"], *rect, int(stats), int(vec),
         _ext.stream_ptr(key),
     )
@@ -241,28 +276,35 @@ def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=
     _ext.launches["relax"] += 1
     if rect != (0, h, 0, w):
         _ext.launches["relax_ctr"] += 1
+    if fwd_scan:
+        _ext.launches["relax_y0"] += 1
+        return key_out, lab_out, buf[:n_flags], y0
     return key_out, lab_out, buf[:n_flags]
 
 
-def relax_block(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, ctr=None, tiles=None):
+def relax_block(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, ctr=None, tiles=None,
+                fwd_scan=False):
     """One call = exactly ``steps`` global Jacobi sweeps of the packed update.
 
     CUDA planes launch the kernel, CPU planes run the plain twin.  Returns
     ``(key', lab', flags)`` with flags ``[changed_any, changed_last, sat]``
     over the centre rectangle ``ctr`` (the whole plane when None), plus the
-    three statistics with ``stats=True``.  ``tiles`` (``_Tiles``, CUDA
-    planes only) lets the kernel skip quiet tiles.
+    three statistics with ``stats=True``, and ``y0`` after the flags with
+    ``fwd_scan=True``.  ``tiles`` (``_Tiles``, CUDA planes only) lets the
+    kernel skip quiet tiles.
     """
     if key.device.type == "cuda":
-        return relax_block_kernel(v, key, lab, steps, d_bits, out=out, stats=stats, tiles=tiles, ctr=ctr)
+        return relax_block_kernel(v, key, lab, steps, d_bits, out=out, stats=stats, tiles=tiles, ctr=ctr,
+                                  fwd_scan=fwd_scan)
     if key.device.type == "cpu":
         if tiles is not None:
             raise ValueError("tile state is for the kernel's quiet-tile skipping on CUDA planes")
-        return relax_block_plain(v, key, lab, steps, d_bits, out=out, stats=stats, ctr=ctr)
+        return relax_block_plain(v, key, lab, steps, d_bits, out=out, stats=stats, ctr=ctr, fwd_scan=fwd_scan)
     raise ValueError(f"unsupported device {key.device}")
 
 
-def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, stats=False, on_call=None, ctr=None):
+def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, stats=False, on_call=None, ctr=None,
+                      fwd_scan=False):
     """Iterate relax_block until a call's last sweep changed nothing.
 
     ``key``/``lab`` serve as one of the two ping-pong buffers and are
@@ -276,6 +318,14 @@ def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, s
     of tiles it skipped.  ``ctr`` limits every call's flags to a centre
     rectangle.
 
+    ``fwd_scan=True`` (statistics implied, no ``ctr``; JAX's
+    ``relax_fixed_point_fused``) runs the first call, which skips no tile,
+    with the y0 epilogue and appends ``(y0, y0_valid)``: ``y0`` is ``fwd_v``
+    of that call's output labels, and ``y0_valid`` says that the call
+    certified the fixed point (its last sweep changed nothing), so that
+    ``y0`` is pass 1 of the fine tail on the returned labels
+    (``scan_merge.component_min_fine(y0=, y0_valid=)``).
+
     On the card a call skips the tiles whose 3x3 neighbourhood of tiles
     changed no centre cell in the previous call (``quiet_tiles``), which is
     exact under the ping-pong.  Such a tile's input equals the previous
@@ -286,31 +336,47 @@ def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, s
     flags (it would change nothing); its saturation bit and statistics are
     the partials it wrote when it last ran, on the same planes.
     """
+    stats = _scan_args(stats, ctr, fwd_scan)
     src = (key, lab)
     dst = (torch.empty_like(key), torch.empty_like(lab))
     tiles = None
     if key.is_cuda:
         tiles = _Tiles(relax_plan(*key.shape, steps), 6 if stats else 3, key.device)
+    y0 = None
     while True:
-        k2, l2, flags = relax_block(v, *src, steps, d_bits, out=dst, stats=stats, ctr=ctr, tiles=tiles)
+        first = fwd_scan and y0 is None
+        k2, l2, flags, *y = relax_block(v, *src, steps, d_bits, out=dst, stats=stats, ctr=ctr, tiles=tiles,
+                                        fwd_scan=first)
         if tiles is None:
             f, skipped = flags.tolist(), 0
         else:
             *f, skipped = tiles.buf.tolist()
+        if first:
+            y0, y0_valid = y[0], not f[LAST]
         if on_call is not None:
             on_call(src, (k2, l2), flags, skipped)
         src, dst = (k2, l2), src
         if not f[LAST]:
+            out = (k2, l2, bool(f[SAT]))
             if stats:
-                return k2, l2, bool(f[SAT]), (f[N_UNCL], bool(f[ANY_BORDER]), f[GMIN])
-            return k2, l2, bool(f[SAT])
+                out += ((f[N_UNCL], bool(f[ANY_BORDER]), f[GMIN]),)
+            if fwd_scan:
+                out += (y0, y0_valid)
+            return out
 
 
-def relax_packed_planes(img, labels0, *, steps=None, d_bits=None, device="cuda", stats=False, checkpoint=None):
+def relax_packed_planes(
+    img, labels0, *, steps=None, d_bits=None, device="cuda", stats=False, checkpoint=None, fwd_scan=False
+):
     """Pack (seeds from ``labels0``, or from the image when it is None) and
     relax to the fixed point.  Returns what relax_fixed_point returns, with
-    ``(h, w)`` planes on ``device``.  ``checkpoint`` (ops/ckpt_relax.py)
-    may replace the packed planes with a snapshot's and sees every call."""
+    ``(h, w)`` planes on ``device``: with ``fwd_scan=True`` ``(key, lab,
+    starved, (n_unclaimed_interior, any_claimed_border,
+    min_claimed_interior_label), y0, y0_valid)``.  ``checkpoint``
+    (ops/ckpt_relax.py) may replace the packed planes with a snapshot's and
+    sees every call; the fused path has none, as in JAX."""
+    if fwd_scan and checkpoint is not None:
+        raise ValueError("fwd_scan=True runs without checkpoints, as the JAX package's fused fixed point")
     steps = DEFAULT_STEPS if steps is None else int(steps)
     d_bits, _, _ = _key_consts(d_bits)
     dev = _ext.resolve_device(device)
@@ -323,7 +389,7 @@ def relax_packed_planes(img, labels0, *, steps=None, d_bits=None, device="cuda",
     if checkpoint is not None:
         key, lab = checkpoint.resume(key, lab)
         on_call = checkpoint.on_call
-    return relax_fixed_point(v, key, lab, steps=steps, d_bits=d_bits, stats=stats, on_call=on_call)
+    return relax_fixed_point(v, key, lab, steps=steps, d_bits=d_bits, stats=stats, on_call=on_call, fwd_scan=fwd_scan)
 
 
 def relax_transform_packed(

@@ -474,14 +474,22 @@ def _flag(b):
     return b.to(torch.int32).reshape(1)
 
 
+def fwd_v_scan(x):
+    """The fine pass 1's plane: the forward vertical segmented min scan of
+    ``x``, 0 a barrier, border columns kept (uncounted; ``fwd_v_plain``
+    and the relax twin's y0 epilogue share it)."""
+    zero = x == 0
+    y = torch.where(zero, 0, _seg_min_scan(torch.where(zero, _INF, x), zero, 0))
+    y[:, 0], y[:, -1] = x[:, 0], x[:, -1]
+    return y
+
+
 def fwd_v_plain(x, *, out=None):
     """Plain twin of the fine pass 1 (scan_merge.py:129-209): the forward
     vertical segmented min scan, 0 a barrier, border columns kept.  Returns
     ``(plane, changed)``, ``changed`` a one-element int32 tensor."""
     _ext.launches["fwd_v_plain"] += 1
-    zero = x == 0
-    y = torch.where(zero, 0, _seg_min_scan(torch.where(zero, _INF, x), zero, 0))
-    y[:, 0], y[:, -1] = x[:, 0], x[:, -1]
+    y = fwd_v_scan(x)
     changed = _flag((y != x).any())  # before ``out``, which may be ``x``, is written
     return _into(out, y), changed
 
@@ -724,12 +732,14 @@ def cbwd_vh(c, h_window=None, *, out=None, scratch=None):
 # -- the drivers ---------------------------------------------------------------
 
 
-def _two_pass_rounds(x, fwd, bwd):
+def _two_pass_rounds(x, fwd, bwd, y0=None):
     """Pass 1, then rounds of pass 2 until one sees no violation, with pass
     1 again after each violated round (scan_merge.py:409-461); one host
-    read per round.  ``bwd(y, k, out, scratch)`` runs round ``k``.  Returns
-    ``(plane, rounds)``."""
-    y, _ = fwd(x, out=None)
+    read per round.  ``bwd(y, k, out, scratch)`` runs round ``k``.  ``y0``,
+    when given, is pass 1's plane already computed: the rounds start from it
+    (and write over it) and pass 1 does not run.  Returns ``(plane,
+    rounds)``."""
+    y = fwd(x, out=None)[0] if y0 is None else y0
     scratch = torch.empty_like(y)
     rounds = 0
     while True:
@@ -740,15 +750,28 @@ def _two_pass_rounds(x, fwd, bwd):
         y, _ = fwd(y, out=y)
 
 
-def component_min_fine(labels):
+def component_min_fine(labels, *, y0=None, y0_valid=None):
     """Component-min labels on the fine scan tail; returns ``(labels,
     rounds)``.  A violation-free pass 2 certifies the fixed point: labels
     only min-propagate inside components, so a state with no differing
     claimed pair across an unblocked edge is the component minimum
-    (scan_merge.py:409-421)."""
+    (scan_merge.py:409-421).
+
+    ``y0`` / ``y0_valid``: pass 1's plane from the relax kernel's y0
+    epilogue (``ops.relax.relax_packed_planes(fwd_scan=True)``), the
+    counterpart of ``component_min_from_padded(y0=, y0_valid=)``
+    (scan_merge.py:464-550).  When ``y0_valid`` is true, ``y0`` is
+    ``fwd_v`` of ``labels``: the rounds start from it, write over it, and
+    ``fwd_v`` does not run; otherwise it runs here as usual.  The labels and
+    the rounds are the same either way."""
     lab = labels.to(torch.int32).contiguous()
+    if y0 is not None and y0_valid:
+        if y0.shape != lab.shape or y0.dtype != torch.int32 or y0.device != lab.device or not y0.is_contiguous():
+            raise ValueError("y0 must be a contiguous int32 plane of the labels' shape and device")
+    else:
+        y0 = None
     return _two_pass_rounds(
-        lab, fwd_v, lambda y, k, out, scratch: bwd_vh(y, out=out, scratch=scratch)
+        lab, fwd_v, lambda y, k, out, scratch: bwd_vh(y, out=out, scratch=scratch), y0
     )
 
 
@@ -795,12 +818,14 @@ def component_min_coarse(labels, n_labels: int):
             return coarse_broadcast(c, labels), rounds
 
 
-def component_min_labels(labels, *, max_label=None):
+def component_min_labels(labels, *, max_label=None, y0=None, y0_valid=None):
     """Every 4-connected component of nonzero labels (blocked border-border
     edges excluded) replaced by its minimum label, on the card's engines
     (scan_merge.py:573-610): the coarse engine when ``max_label`` bounds
-    the labels below 2**24 and ``w >= 3``, else the fine tail.  Returns
-    ``(labels, rounds)``."""
+    the labels below 2**24 and ``w >= 3``, else the fine tail.  ``y0`` /
+    ``y0_valid`` go to the fine tail (``component_min_fine``); the coarse
+    engine takes no y0 (scan_merge.py:1268-1281).  Returns ``(labels,
+    rounds)``."""
     if max_label is None or not _coarse_gate(labels.shape[1], max_label):
-        return component_min_fine(labels)
+        return component_min_fine(labels, y0=y0, y0_valid=y0_valid)
     return component_min_coarse(labels, max_label)

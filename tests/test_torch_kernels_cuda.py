@@ -146,6 +146,45 @@ def test_relax_stats_match_twin(cuda, shape, border_seed):
         key, lab = got[0], got[1]
 
 
+@pytest.mark.parametrize("steps", [1, 8, 27])
+@pytest.mark.parametrize("shape", [(5, 7), (130, 257), (2, 64), (3000, 300), (97, 16384)])
+def test_relax_y0_epilogue_matches_twin(cuda, shape, steps):
+    """The y0 epilogue (many tile rows: the look-back; odd widths: the
+    cell-wise stores) against the twin, call by call from the fresh pack
+    state, and the fused fixed point on the card against the CPU's."""
+    img = torch.from_numpy(_field(shape, 254, seed=shape[1])).to(cuda)
+    v, key, lab, _ = pack.pack_kernel(img)
+    k, l = key, lab
+    _ext.reset_launches()
+    for _ in range(3):
+        got = relax.relax_block(v, k, l, steps, fwd_scan=True)
+        _assert_same(got, relax.relax_block_plain(v, k, l, steps, fwd_scan=True))
+        assert len(got) == 4 and got[2].shape == (6,)
+        k, l = got[0], got[1]
+    assert _ext.launches["relax_y0"] == _ext.launches["relax"] == 3
+    fused = relax.relax_fixed_point(v, key.clone(), lab.clone(), steps=steps, fwd_scan=True)
+    want = relax.relax_fixed_point(v.cpu(), key.cpu(), lab.cpu(), steps=steps, fwd_scan=True)
+    torch.cuda.synchronize()
+    for g, w in zip(fused, want):
+        assert torch.equal(g.cpu(), w) if torch.is_tensor(g) else g == w
+
+
+def test_relax_y0_refused_on_a_call_that_may_skip_tiles(cuda):
+    """Only the fixed point's first call (no previous call's tile flags) may
+    run the y0 epilogue: a later call with tile state raises."""
+    img = torch.from_numpy(_field((300, 300), 254, seed=1)).to(cuda)
+    v, key, lab, _ = pack.pack_kernel(img)
+    tiles = relax._Tiles(relax.relax_plan(300, 300, 8), 6, cuda)
+    assert tiles.plan["skip"]
+    k, l, _, y0 = relax.relax_block(v, key, lab, 8, fwd_scan=True, tiles=tiles)
+    torch.cuda.synchronize()
+    assert torch.equal(y0, sm.fwd_v_plain(l)[0])
+    with pytest.raises(ValueError, match="every tile"):
+        relax.relax_block(v, k, l, 8, fwd_scan=True, tiles=tiles)
+    with pytest.raises(ValueError, match="rectangle"):
+        relax.relax_block(v, key, lab, 8, fwd_scan=True, ctr=(8, 292, 8, 292))
+
+
 def _relaxed_labels(shape, seed, nan=0.1):
     """A fixed point's label plane: the merging tail's input."""
     img = _field(shape, 254, seed=seed)

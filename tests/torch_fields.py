@@ -29,6 +29,19 @@ def seed_lattice(shape, seed=0):
     return img
 
 
+def cone_lattice(shape, spacing=8):
+    """A u8 image of square cones on a ``spacing`` lattice: a strict maximum
+    (200) at each cone's apex, 10 less per ring (Chebyshev distance).  Every
+    non-seed pixel's best claim passes an apex ring at 190, so the packed
+    key's level is 190 everywhere and the relax fixed point is reached
+    within about ``spacing`` sweeps: a first relax call of 12 or more
+    steps certifies it at any size."""
+    yy, xx = np.mgrid[: shape[0], : shape[1]]
+    half = spacing // 2
+    dist = np.maximum(np.abs(yy % spacing - half), np.abs(xx % spacing - half))
+    return (200 - 10 * dist).astype(np.uint8)
+
+
 def plateau(shape, seed=0):
     """A u8 image of values 0..3: wide plateaus, few strict maxima."""
     return np.random.default_rng(seed).integers(0, 4, shape).astype(np.uint8)

@@ -21,7 +21,8 @@ whose four ranks run the twins; the per-level API and the host loop on the
 cut golden_morph_v1 and its quadrants; ``backend='relax'`` on both meshes)
 run on the cut fields; ``--mesh`` runs phases 1, 2 and 21-23 alone (their
 inputs made as main() makes them), in a few minutes, ``--late`` phases 24
-and 25 alone.  Phase 24 (tracing)
+and 25 alone, ``--y0`` phase 26 (the relax kernel's y0 epilogue) alone.
+Phase 24 (tracing)
 runs in its own process on the CPU (its trace holds no device kernel, so
 the kernel counts are held at 0), phase 25 on the morphology field at
 256^2 with a 48^2 corner.
@@ -71,6 +72,8 @@ CUTS = [
      '    vcols = [1.0] * 20\n'),
     ('    hwins = [e.time_range.elapsed_us() / 1e3 for e in on_card if "hwin_ring" in e.name]\n',
      '    hwins = [1.0] * 20\n'),
+    ('        ts = [e.time_range.elapsed_us() / 1e3 for e in on_card if tmpl in e.name]\n',
+     '        ts = [1.0] * 15\n'),
     # The level driver keeps tile state for CUDA planes only; a 256^2 field has
     # too few tiles for its level sweep to skip any.
     ('check(counts["flood_tiles"] == counts["flood"], f"every level-sweep flood call ran with tile state ({label})")',
@@ -126,12 +129,14 @@ def _fake_kernels():
     pack.pack_kernel = pack_routed
     relax_plain = as_kernel(relax.relax_block_plain, "relax")
 
-    def relax_kernel(v, key, lab, steps, d_bits=None, *, tiles=None, ctr=None, stats=False, **kw):
+    def relax_kernel(v, key, lab, steps, d_bits=None, *, tiles=None, ctr=None, stats=False, fwd_scan=False, **kw):
         """The twin (no tile state), counted as the kernel with its centre
-        rectangle."""
+        rectangle and its y0 epilogue."""
         if relax._rect(ctr, *key.shape, stats) != (0, key.shape[0], 0, key.shape[1]):
             _ext.launches["relax_ctr"] += 1
-        return relax_plain(v, key, lab, steps, d_bits, ctr=ctr, stats=stats, **kw)
+        if fwd_scan:
+            _ext.launches["relax_y0"] += 1
+        return relax_plain(v, key, lab, steps, d_bits, ctr=ctr, stats=stats, fwd_scan=fwd_scan, **kw)
 
     relax.relax_block_kernel = relax_kernel
     relax.relax_block = lambda *a, **k: relax.relax_block_kernel(*a, **k)
@@ -267,6 +272,8 @@ def main() -> int:
         return mesh_only(mod)
     if "--late" in sys.argv[1:]:
         return late_only(mod)
+    if "--y0" in sys.argv[1:]:
+        return y0_only(mod)
     return mod.main()
 
 
@@ -325,6 +332,37 @@ def late_only(mod) -> int:
         dev=dev, gpu=mod.gpu_line(), to_dev=lambda a: torch.from_numpy(np.ascontiguousarray(a)), timed=timed,
         builder=builder, ws=builder("segmenting"),
     ))
+    return 0
+
+
+def y0_only(mod) -> int:
+    """Phase 26 of the rehearsal alone, on planes packed as main() and
+    phase 19 pack them at the cut sizes."""
+    import numpy as np
+
+    from rustronomy_watershed_tpu_torch.ops import pack
+    from torch_fields import cone_lattice, seed_lattice
+
+    side, big = mod.SIDE, mod.BIG
+    rng = np.random.default_rng(0)
+    dots = rng.integers(0, 254, (side, side)).astype(np.uint8)
+    dots[rng.random((side, side)) < 0.1] = 255
+    img_np = np.random.default_rng(0).integers(0, 254, (side, side)).astype(np.uint8)
+    dots16 = np.random.default_rng(0).integers(0, 254, (big, big)).astype(np.uint8)
+    dots16[np.random.default_rng(1).random((big, big)) < 0.1] = 255
+
+    def median_ms(fn, reps):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = mod.y0_phase(types.SimpleNamespace(
+        gpu=mod.gpu_line(), to_dev=lambda a: torch.from_numpy(np.ascontiguousarray(a)), median_ms=median_ms,
+        planes=pack.pack_kernel(torch.from_numpy(img_np))[:3], planes16=pack.pack_kernel(torch.from_numpy(dots16))[:3],
+        fields={"uniform": img_np, "10% dots": dots, "seed lattice": seed_lattice((side, side)),
+                "cone lattice": cone_lattice((side, side))},
+    ))
+    print(out)
     return 0
 
 
