@@ -30,7 +30,15 @@ of those, the tiles that copied their centre to keep the ping-pong planes
 in sync (``flood_tiles_copied``).  ``relax_ctr`` counts the relax launches
 whose flags cover a centre rectangle smaller than the plane (a mesh tile's,
 parallel/tiled.py), ``relax_y0`` those that ran the y0 epilogue
-(``fwd_scan=True``).
+(``fwd_scan=True``).  ``relax_tiles`` adds each relax launch's tiles (its
+plan's ``n_tiles``) and ``relax_tiles_skipped`` the quiet tiles a skipping
+fixed point's launches skipped, as the host reads them with the flags.
+``host_reads`` counts the program's explicit blocking reads of a result on
+the transforms' paths, each made through ``host_read``: a relax call's
+flags, a merging tail round's flag, the seed list, the compact planes of
+``transform_to_list`` and the labels or sizes a public call returns.  A sync
+inside a torch op (``nonzero``, boolean-mask indexing, ``unique``, a copy
+from pageable memory) is not counted.
 """
 
 from __future__ import annotations
@@ -81,6 +89,9 @@ launches = {
     "flood_tiles_copied": 0,
     "relax_ctr": 0,
     "relax_y0": 0,
+    "relax_tiles": 0,
+    "relax_tiles_skipped": 0,
+    "host_reads": 0,
 }
 
 _lib = None
@@ -89,6 +100,16 @@ _lib = None
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def host_read(t: torch.Tensor, to: str = "list"):
+    """``t.tolist()``, ``t.item()`` (``to="item"``) or ``t.cpu().numpy()``
+    (``to="numpy"``): a read of a result that waits for the device, counted
+    in ``host_reads``."""
+    launches["host_reads"] += 1
+    if to == "item":
+        return t.item()
+    return t.cpu().numpy() if to == "numpy" else t.tolist()
 
 
 _SM_COUNT: dict = {}

@@ -52,6 +52,7 @@ from ..parity.native import native_transform
 from ..utils.checkpoint import TransformCheckpointer, fingerprint
 from ..utils.perf import PerfReport
 from ..utils.progress import ProgressBar
+from ..utils.tracing import span, spanned
 
 # Public backend name -> the port's engine (ops/level_driver.py).  'native'
 # runs the C++ engine where it serves the call, else the plain level sweep.
@@ -97,6 +98,7 @@ def _surviving_min(coords, w: int) -> int:
     return int(keep.min()) + 1
 
 
+@spanned("rwt.api.expand_rows")
 def _expand_rows(sizes, counts_length: int, max_water_level: int, copy: bool = False):
     """``[(level, counts row)]`` with rows of ``counts_length`` int64
     (the reference's ``n_pixels + 1`` by default, src/lib.rs:630).
@@ -143,9 +145,11 @@ class WatershedUtils:
         """Seed coordinates in row-major order: strict local *maxima* by
         value despite the name (src/lib.rs:1190, SURVEY.md Q1); pass
         ``mode='minima'`` for the documented intent."""
-        dev = _ext.resolve_device(self.device)
-        mask = local_extrema_mask(torch.as_tensor(img).to(dev), mode)
-        return list(map(tuple, torch.nonzero(mask).tolist()))
+        with span("rwt.api.find_local_minima"):
+            dev = _ext.resolve_device(self.device)
+            mask = local_extrema_mask(torch.as_tensor(img).to(dev), mode)
+            with span("rwt.api.seed_list"):
+                return list(map(tuple, _ext.host_read(torch.nonzero(mask))))
 
 
 class _WatershedBase(WatershedUtils):
@@ -240,6 +244,7 @@ class _WatershedBase(WatershedUtils):
             mesh=self.mesh,
         )
 
+    @spanned("rwt.api.prepare")
     def _prepare(self, input_img, seeds):
         """Edge correction + painted seeds (src/lib.rs:1329-1369), on the
         device."""
@@ -361,7 +366,7 @@ class _WatershedBase(WatershedUtils):
             img, labels0 = self._prepare(input_img, seeds)
             ckpt = TransformCheckpointer(self.checkpoint_dir, self.checkpoint_every)
             labels = self._run(img, labels0, n_labels=len(seeds), checkpointer=ckpt)
-            return labels if device_output else labels.cpu().numpy()
+            return labels if device_output else _ext.host_read(labels, "numpy")
         if self._needs_host_loop():
             clone = self._clone_with_hook(
                 lambda ctx: ctx.colours.copy() if ctx.water_level == ctx.max_water_level else None
@@ -371,9 +376,9 @@ class _WatershedBase(WatershedUtils):
         img, labels0 = self._prepare(input_img, seeds)
         if self.mesh is not None:
             labels = self._run_mesh(img, labels0, n_labels=len(seeds))
-            return labels if device_output else labels.cpu().numpy()
+            return labels if device_output else _ext.host_read(labels, "numpy")
         labels = self._run(img, labels0, n_labels=len(seeds))
-        return labels if device_output else labels.cpu().numpy()
+        return labels if device_output else _ext.host_read(labels, "numpy")
 
     def transform_with_hook(self, input_img, seeds) -> list:
         """Run the transform, calling the hook at each water level; returns
@@ -388,6 +393,7 @@ class _WatershedBase(WatershedUtils):
             return []
         return self._host_stepped(input_img, seeds)
 
+    @spanned("rwt.api.transform_to_list")
     def transform_to_list(
         self, input_img, seeds, counts_length: Optional[int] = None, copy: bool = False
     ) -> list[tuple[int, np.ndarray]]:
@@ -444,7 +450,7 @@ class _WatershedBase(WatershedUtils):
                 img, labels0, collect="sizes", backend=backend, sweep_fn=self._effective_sweep_fn(img.shape),
                 device=img.device, **kw,
             )
-            sizes = sizes.cpu().numpy()
+            sizes = _ext.host_read(sizes, "numpy")
         return _expand_rows(sizes, counts_length, self.max_water_level, copy)
 
     def _history_stack_fits(self, shape) -> bool:

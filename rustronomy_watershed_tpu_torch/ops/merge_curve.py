@@ -30,6 +30,7 @@ import torch
 
 from .. import _ext
 from ..parity.native import native_merged_curve
+from ..utils.tracing import spanned
 from .priority import relax_transform
 from .relax import _key_consts, relax_transform_packed
 from .scan_merge import component_min_labels, component_min_labels_plain
@@ -70,6 +71,7 @@ def merge_edges(seg_labels, claim_levels, *, max_water_level: int):
     return lo, hi, least, int(uniq.numel())
 
 
+@spanned("rwt.api.device_curves")
 def _device_curves(
     img, labels0, *, n_labels: int, max_water_level: int, backend: str = "packed",
     steps=None, with_final: bool = True, with_edges: bool = True, device="cuda",
@@ -109,11 +111,12 @@ def _device_curves(
     return final, labels, lv8, (lo, hi, act), starved
 
 
+@spanned("rwt.api.fetch_planes")
 def _fetch_planes(labels, lv8, edges):
     """``(labels, lv8, lo, hi, act)`` as host numpy arrays, moved in ONE
     device-to-host copy of their bytes."""
     parts = [labels.reshape(-1), lv8.reshape(-1), *edges]
-    raw = torch.cat([p.contiguous().view(torch.uint8) for p in parts]).cpu().numpy()
+    raw = _ext.host_read(torch.cat([p.contiguous().view(torch.uint8) for p in parts]), "numpy")
     out, at = [], 0
     for p in parts:
         n = p.numel() * p.element_size()
@@ -192,6 +195,7 @@ def merged_sizes_host(cum: np.ndarray, lo: np.ndarray, hi: np.ndarray, act: np.n
     return out
 
 
+@spanned("rwt.api.curve_tail")
 def merged_curve_host(
     labels_np, lv8_np, n_labels: int, max_water_level: int, lo, hi, act,
     out_width: int | None = None,

@@ -10,6 +10,7 @@ the host.
 
 from __future__ import annotations
 
+from ..utils.tracing import spanned
 from .level_driver import run_levels_impl
 
 
@@ -21,6 +22,7 @@ def max_seed_count(shape: tuple[int, int]) -> int:
     return max(1, ((h - 1) // 2) * ((w - 1) // 2))
 
 
+@spanned("rwt.e2e")
 def watershed_e2e(
     img,
     *,

@@ -57,6 +57,7 @@ import torch
 
 from .. import _ext
 from ..constants import _D_BITS, _INF, NEVER_FILL, UNCOLOURED
+from ..utils.tracing import span, spanned
 from .pack import pack_domain, pack_domain_fused
 from .scan_merge import fwd_v_scan
 from .stencil import interior_mask, shift4
@@ -274,6 +275,7 @@ def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=
     )
     _ext.check(err, "rwt_relax")
     _ext.launches["relax"] += 1
+    _ext.launches["relax_tiles"] += plan["n_tiles"]
     if rect != (0, h, 0, w):
         _ext.launches["relax_ctr"] += 1
     if fwd_scan:
@@ -303,6 +305,7 @@ def relax_block(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, 
     raise ValueError(f"unsupported device {key.device}")
 
 
+@spanned("rwt.driver.relax")
 def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, stats=False, on_call=None, ctr=None,
                       fwd_scan=False):
     """Iterate relax_block until a call's last sweep changed nothing.
@@ -348,9 +351,10 @@ def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, s
         k2, l2, flags, *y = relax_block(v, *src, steps, d_bits, out=dst, stats=stats, ctr=ctr, tiles=tiles,
                                         fwd_scan=first)
         if tiles is None:
-            f, skipped = flags.tolist(), 0
+            f, skipped = _ext.host_read(flags), 0
         else:
-            *f, skipped = tiles.buf.tolist()
+            *f, skipped = _ext.host_read(tiles.buf)
+            _ext.launches["relax_tiles_skipped"] += skipped
         if first:
             y0, y0_valid = y[0], not f[LAST]
         if on_call is not None:
@@ -380,11 +384,12 @@ def relax_packed_planes(
     steps = DEFAULT_STEPS if steps is None else int(steps)
     d_bits, _, _ = _key_consts(d_bits)
     dev = _ext.resolve_device(device)
-    if labels0 is None:
-        v, key, lab, _ = pack_domain_fused(img, dev, d_bits=d_bits)
-    else:
-        img = torch.as_tensor(img).to(dev)
-        v, key, lab = pack_domain(img, torch.as_tensor(labels0).to(dev), d_bits=d_bits)
+    with span("rwt.pack"):
+        if labels0 is None:
+            v, key, lab, _ = pack_domain_fused(img, dev, d_bits=d_bits)
+        else:
+            img = torch.as_tensor(img).to(dev)
+            v, key, lab = pack_domain(img, torch.as_tensor(labels0).to(dev), d_bits=d_bits)
     on_call = None
     if checkpoint is not None:
         key, lab = checkpoint.resume(key, lab)

@@ -64,6 +64,7 @@ import torch
 
 from .. import _ext
 from ..constants import _INF
+from ..utils.tracing import spanned
 
 _CVAL = (1 << 24) - 1  # value bits of a coarse cell; labels must stay below
 _CB_VF = 24  # forward-vertical reset bit
@@ -745,7 +746,7 @@ def _two_pass_rounds(x, fwd, bwd, y0=None):
     while True:
         y, viol = bwd(y, rounds, y, scratch)
         rounds += 1
-        if not int(viol.item()):
+        if not _ext.host_read(viol, "item"):
             return y, rounds
         y, _ = fwd(y, out=y)
 
@@ -814,10 +815,11 @@ def component_min_coarse(labels, n_labels: int):
     while True:
         c, changed = coarse_round(c, out=c, scratch=scratch)
         rounds += 1
-        if not int(changed.item()):
+        if not _ext.host_read(changed, "item"):
             return coarse_broadcast(c, labels), rounds
 
 
+@spanned("rwt.tail")
 def component_min_labels(labels, *, max_label=None, y0=None, y0_valid=None):
     """Every 4-connected component of nonzero labels (blocked border-border
     edges excluded) replaced by its minimum label, on the card's engines

@@ -591,6 +591,29 @@ def test_relax_fixed_point_skips_quiet_tiles(cuda):
     assert got[2:] == want[2:]
 
 
+def test_relax_tile_and_host_read_counters(cuda):
+    """``relax_tiles`` adds each launch's plan tiles and
+    ``relax_tiles_skipped`` the skips that ``on_call`` sees: 0 on the first
+    call, at most ``n_tiles`` after; a launch without tile state skips
+    nothing.  One host read a relax call, and in the merging e2e one more a
+    tail round."""
+    img = torch.from_numpy(_field((1024, 1024), 254, seed=7)).to(cuda)
+    v, key, lab, _ = pack.pack_kernel(img)
+    plan = relax.relax_plan(1024, 1024, relax.DEFAULT_STEPS)
+    skipped = []
+    _ext.reset_launches()
+    relax.relax_fixed_point(v, key.clone(), lab.clone(), on_call=lambda src, dst, flags, s: skipped.append(s))
+    n = _ext.launches
+    assert n["relax"] == len(skipped) >= 2 and n["relax_tiles"] == plan["n_tiles"] * len(skipped)
+    assert skipped[0] == 0 and all(0 <= s <= plan["n_tiles"] for s in skipped)
+    assert n["relax_tiles_skipped"] == sum(skipped) and n["host_reads"] == len(skipped)
+    relax.relax_block(v, key, lab, relax.DEFAULT_STEPS)
+    assert n["relax_tiles"] == plan["n_tiles"] * (len(skipped) + 1) and n["relax_tiles_skipped"] == sum(skipped)
+    _ext.reset_launches()
+    watershed_e2e(img, merging=True, device=cuda)
+    assert n["merge_tail"] == 1 and n["host_reads"] == n["relax"] + n["coarse_round"] > n["relax"]
+
+
 def _rects(h, w):
     """The whole plane, the mesh's inner rectangle, one that cuts the
     kernel's tiles off-centre, a one-row and a one-cell rectangle."""
