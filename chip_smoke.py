@@ -160,13 +160,14 @@ def start_morph_references() -> dict:
 
 
 # Device kernels of the traced transforms (phase 24), by a part of their
-# demangled names, and the launches of each per count of its route counter.
+# demangled names, and the launches of each per count of its launch counter
+# (a coarse round that stopped on the device launched its kernels too).
 TRACED_KERNELS = {
     "pack": ("pack_bands", "pack", 1),
     "relax": ("relax_kernel", "relax", 1),
     "coarsen": ("coarsen_strips", "coarsen", 1),
-    "coarse round column scans": ("vscan_tiles<true,", "coarse_round", 2),
-    "coarse round row kernel": ("row_ring<true>", "coarse_round", 1),
+    "coarse round column scans": ("vscan_tiles<true,", "coarse_round_launched", 2),
+    "coarse round row kernel": ("row_ring<true>", "coarse_round_launched", 1),
     "coarse_broadcast": ("broadcast_rows", "coarse_broadcast", 1),
 }
 
@@ -734,7 +735,7 @@ def late_phases(c) -> None:
     routes = first["launches"]
     check(routes["pack_vec"] == routes["pack"] and routes["coarsen_vec"] == routes["coarsen"]
           and routes["coarse_broadcast_vec"] == routes["coarse_broadcast"]
-          and routes["coarse_round_ring"] == routes["coarse_round"] and routes["merge_tail"] == 1,
+          and routes["coarse_round_ring"] == routes["coarse_round_launched"] and routes["merge_tail"] == 1,
           "the traced transforms took the vector routes, the ring rounds and the merging tail")
     traced = {}
     for what, (part, counter, per) in TRACED_KERNELS.items():
@@ -1195,7 +1196,8 @@ def main() -> int:
     def coarse_tail_against_twins(label, lab):
         """The coarse tail through the kernels, every round held against the
         twin (plane and change count; the twin runs first, as the round
-        writes over its input); returns the rounds and the row route."""
+        writes over its input), and the blocked tail of the main path against
+        that loop; returns the rounds and the row route."""
         croute = sm.coarsen_plan(*lab.shape, sm._vec(lab.shape[1], lab))["route"]
         _ext.reset_launches()
         c = sm.coarsen_kernel(lab)
@@ -1217,8 +1219,23 @@ def main() -> int:
             if got[1].item() == 0:
                 break
             check(rounds < 10000, f"coarse rounds converge on {label}")
-        check(_ext.launches[f"coarse_round_{route}"] == _ext.launches["coarse_round"] == rounds,
+        n = _ext.launches
+        check(n[f"coarse_round_{route}"] == n["coarse_round_launched"] == n["coarse_round"] == rounds,
               f"the coarse round took the {route} row route on {label}")
+        # The blocked tail (the main path's rounds, with the device-side
+        # stop) against this round-by-round loop: plane and rounds.
+        _ext.reset_launches()
+        blocked, blocked_rounds = sm.component_min_coarse(lab, sm._CVAL)
+        torch.cuda.synchronize()
+        k = sm._TAIL_BLOCK
+        check(blocked_rounds == rounds and torch.equal(blocked, sm.coarse_broadcast_kernel(c, lab)),
+              f"the blocked coarse tail's labels and rounds == the round-by-round loop's on {label}")
+        check(n[f"coarse_round_{route}"] == n["coarse_round_launched"] == n["coarse_round"] + n["coarse_round_skipped"]
+              and n["coarse_round"] == rounds and k <= n["coarse_round_skipped"] <= 2 * k - 1
+              and n["host_reads"] == -(-rounds // k),
+              f"the blocked coarse tail on {label}: {n['coarse_round_launched']} launches, {n['coarse_round']} ran, "
+              f"{n['coarse_round_skipped']} stopped on the device, {n['host_reads']} reads")
+        _ext.reset_launches()
         broute = sm.broadcast_plan(*lab.shape, sm._vec(lab.shape[1], c, lab))["route"]
         fine = sm.coarse_broadcast_kernel(c, lab)
         check(_ext.launches[f"coarse_broadcast_{broute}"] == _ext.launches["coarse_broadcast"] == 1,
@@ -1236,7 +1253,8 @@ def main() -> int:
         coarsen_routes.add(croute)
         bcast_routes.add(broute)
         print(f"[8 coarse] {label}: coarsen (route {croute}), {rounds} rounds (row route {route}) and broadcast "
-              f"(route {broute}) bit-equal to their twins; tail == oracle")
+              f"(route {broute}) bit-equal to their twins; tail == oracle; the blocked tail's labels and rounds "
+              f"== the round-by-round loop's")
     check(coarse_routes == {"ring", "chunked"}, "both row routes of the coarse round ran")
     check(coarsen_routes == {"vec", "cells"}, "both routes of coarsen ran")
     check(bcast_routes == {"vec", "cells"}, "both routes of the broadcast ran")
@@ -1274,6 +1292,8 @@ def main() -> int:
         tail = route == "merge_tail"
         for k in ("coarsen", "coarse_round", "coarse_broadcast"):
             check((counts[k] > 0) == tail, f"{k} launched iff the tail ran ({label})")
+        check(counts["coarse_round"] + counts["coarse_round_skipped"] == counts["coarse_round_launched"],
+              f"the coarse rounds that ran and those that stopped add up to the launches ({label})")
         check(counts["coarsen_vec"] == counts["coarsen"] and counts["pack_vec"] == 1
               and counts["coarse_broadcast_vec"] == counts["coarse_broadcast"],
               f"{label} merging e2e took the vector routes of pack, coarsen and the broadcast")
@@ -2128,7 +2148,8 @@ def main() -> int:
         ("relax", "csrc/relax.cu", "rustronomy_watershed_tpu/ops/pallas_relax.py:254", launches["relax"], relax_err, relax_ms, relax_plain_ms),
         ("coarsen", "csrc/coarsen.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:687", dot_counts["coarsen"],
          coarse_err["coarsen"], coarsen_ms, coarsen_plain_ms),
-        ("coarse_round", "csrc/scan_round.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:1001", dot_counts["coarse_round"],
+        ("coarse_round", "csrc/scan_round.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:1001",
+         dot_counts["coarse_round_launched"],
          coarse_err["coarse_round"], round_ms, round_plain_ms),
         ("coarse_broadcast", "csrc/coarse_broadcast.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:1185",
          dot_counts["coarse_broadcast"], coarse_err["coarse_broadcast"], bcast_ms, bcast_plain_ms),

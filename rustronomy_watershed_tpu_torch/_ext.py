@@ -33,9 +33,17 @@ parallel/tiled.py), ``relax_y0`` those that ran the y0 epilogue
 (``fwd_scan=True``).  ``relax_tiles`` adds each relax launch's tiles (its
 plan's ``n_tiles``) and ``relax_tiles_skipped`` the quiet tiles a skipping
 fixed point's launches skipped, as the host reads them with the flags.
+``coarse_round_launched`` counts every launch of the coarse round, as it
+is queued, and ``coarse_round_ring`` / ``coarse_round_chunked`` its row
+route; ``coarse_round`` counts the rounds that ran, ``coarse_round_skipped``
+those the merging tail queued that stopped on the device, because a round
+before them changed nothing (ops/scan_merge.py ``_coarse_rounds``, which
+counts both once it has read a block's change counts): the two add up to
+``coarse_round_launched``.
 ``host_reads`` counts the program's explicit blocking reads of a result on
 the transforms' paths, each made through ``host_read``: a relax call's
-flags, a merging tail round's flag, the seed list, the compact planes of
+flags, a block of coarse rounds' change counts, a legacy or fine tail
+round's flag, the seed list, the compact planes of
 ``transform_to_list`` and the labels or sizes a public call returns.  A sync
 inside a torch op (``nonzero``, boolean-mask indexing, ``unique``, a copy
 from pageable memory) is not counted.
@@ -91,6 +99,8 @@ launches = {
     "relax_y0": 0,
     "relax_tiles": 0,
     "relax_tiles_skipped": 0,
+    "coarse_round_launched": 0,
+    "coarse_round_skipped": 0,
     "host_reads": 0,
 }
 
@@ -102,11 +112,14 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def host_read(t: torch.Tensor, to: str = "list"):
+def host_read(t: torch.Tensor, to: str = "list", after=None):
     """``t.tolist()``, ``t.item()`` (``to="item"``) or ``t.cpu().numpy()``
     (``to="numpy"``): a read of a result that waits for the device, counted
-    in ``host_reads``."""
+    in ``host_reads``.  ``after``: a CUDA event to wait for first, when
+    ``t`` is host memory that a copy queued before the event fills."""
     launches["host_reads"] += 1
+    if after is not None:
+        after.synchronize()
     if to == "item":
         return t.item()
     return t.cpu().numpy() if to == "numpy" else t.tolist()
@@ -206,7 +219,7 @@ def lib() -> ctypes.CDLL:
         L.rwt_relax.restype = I
         L.rwt_coarsen.argtypes = [P, P, I, I, I, I, I, I, I, P]
         L.rwt_coarsen.restype = I
-        L.rwt_coarse_round.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
+        L.rwt_coarse_round.argtypes = [P] * 6 + [I] * 7 + [P]
         L.rwt_coarse_round.restype = I
         L.rwt_coarse_broadcast.argtypes = [P, P, P] + [I] * 7 + [P]
         L.rwt_coarse_broadcast.restype = I

@@ -26,9 +26,13 @@
 //     one TPU core walking bands in order.  Blocks on Hopper run in no
 //     order, so rwt_coarse_round is a full-length run-min of every column
 //     (plane -> scratch), then of every row (scratch -> out), counting the
-//     cells that changed; the host stops after a round that changed none
+//     cells that changed; the tail stops after a round that changed none
 //     (the change-based certificate of scan_merge.py:1114-1128).  Its
 //     launches are the fine passes' kernels in the coarse form (below).
+//     The host queues rounds in blocks and reads their counts a block at a
+//     time: a round given the previous round's count as `go` returns from
+//     each launch at once when it reads 0, so the rounds queued after the
+//     fixed point move no byte.
 // Every launch reads whole planes and writes whole planes, so each entry
 // point equals its plain twin (ops/scan_merge.py) bit for bit.
 //
@@ -215,11 +219,16 @@ v_pass(const int32_t* in, int32_t* out, int32_t* changed, int h, int w) {
 // which must not alias.  Fine border rows keep their cells.  `changed` (may
 // be null) gets the number of cells whose value changed.  A block owns 8
 // rows, each cut into 32 chunks (a warp covers the chunks of one row, at a
-// stride): the route for rows wider than the ring row kernel takes.
+// stride): the route for rows wider than the ring row kernel takes.  Coarse
+// with `go` (may be null): the launch returns at once when *go is 0 (a
+// coarse round's stop, rwt_coarse_round).
 template <bool kCoarse>
 __global__ void __launch_bounds__(256)
 run_min_pass(const int32_t* __restrict__ in, int32_t* __restrict__ out,
-             int32_t* changed, int h, int w) {
+             int32_t* changed, int h, int w, const int32_t* go = nullptr) {
+  if constexpr (kCoarse) {
+    if (go != nullptr && *go == 0) return;
+  }
   constexpr int kLines = 8;
   constexpr int kFwd = kHf, kBwd = kHb;
   __shared__ int agg_v[kLines][kChunks + 1];
@@ -400,10 +409,18 @@ __device__ __forceinline__ void st_release(int* p, int v) {
 // scan order (row of tiles, then column of tiles) by `status[0]`, an atomic
 // counter.  status: [counter, flag per tile], zero at launch; carry:
 // [aggregate per tile and column, inclusive carry per tile and column].
+// Coarse: block 0 first zeroes `zero` (may be null; the round's change
+// count, which the next launch adds to), and with `go` (may be null) every
+// block returns at once, before it takes a tile, when *go is 0 (a coarse
+// round's stop, rwt_coarse_round).
 template <bool kCoarse, bool kVec, bool kFwd>
 __global__ void __launch_bounds__(32 * kTileWarps, 32 / kTileWarps)
 vscan_tiles(const int32_t* in, int32_t* out, int32_t* changed, int32_t* status, int32_t* carry, int h, int w,
-            int n_tc, const int32_t* __restrict__ orig) {
+            int n_tc, const int32_t* __restrict__ orig, const int32_t* __restrict__ go, int32_t* zero) {
+  if constexpr (kCoarse) {
+    if (zero != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *zero = 0;
+    if (go != nullptr && *go == 0) return;
+  }
   constexpr int kBit = kFwd ? kVf : kVb;
   constexpr int kLane = kVec ? 4 : 1;  // columns per lane
   constexpr int kTC = 32 * kLane;      // columns per tile
@@ -737,11 +754,16 @@ __device__ __forceinline__ void block_scans(int (&f)[NF], int (&b)[NB], int (*s_
 // segment restarts at a cell with bit 26, a backward one at a cell with bit
 // 27 (and both at a row's end, as each row is its own scan), empty cells
 // scan as kInf and stay, the high bits pass through; no shadow row and no
-// stencil: `flag` gets the number of cells whose value changed.
+// stencil: `flag` gets the number of cells whose value changed, and with
+// `go` (may be null) the launch returns at once when *go is 0 (a coarse
+// round's stop, rwt_coarse_round).
 template <bool kCoarse>
 __global__ void __launch_bounds__(1024)
 row_ring(const int32_t* __restrict__ in, int32_t* __restrict__ out, int32_t* flag, int h, int w,
-         int rows_per_step, int band_rows) {
+         int rows_per_step, int band_rows, const int32_t* __restrict__ go) {
+  if constexpr (kCoarse) {
+    if (go != nullptr && *go == 0) return;
+  }
   extern __shared__ int4 ring4[];
   int* ring = reinterpret_cast<int*>(ring4);
   __shared__ int s_wf[32], s_wb[32];
@@ -1354,11 +1376,12 @@ dim3 cell_grid(int h, int w) {
 // The column scan, one block per tile: with `zero`, the status counter and
 // flags are zeroed first (else they must be zero already); `carry` is
 // status + 1 + n_tiles when null.  `vec` asks for 16-byte access (w % 4 ==
-// 0, the planes 16-byte aligned; refused otherwise).
+// 0, the planes 16-byte aligned; refused otherwise).  `go` and `to_zero`:
+// the coarse round's stop word and change count (vscan_tiles), or null.
 template <bool kCoarse, bool kFwd>
 cudaError_t vscan(const int32_t* in, int32_t* out, int32_t* changed, int32_t* status, int h, int w,
                   int vec, cudaStream_t st, const int32_t* orig = nullptr, int32_t* carry = nullptr,
-                  bool zero = true) {
+                  bool zero = true, const int32_t* go = nullptr, int32_t* to_zero = nullptr) {
   const int tc = vec ? 128 : 32;
   const int n_tc = (w + tc - 1) / tc;
   const long long n_tiles = (long long)((h + kTileRows - 1) / kTileRows) * n_tc;
@@ -1373,10 +1396,11 @@ cudaError_t vscan(const int32_t* in, int32_t* out, int32_t* changed, int32_t* st
   }
   if (vec) {
     vscan_tiles<kCoarse, true, kFwd><<<(unsigned)n_tiles, 32 * kTileWarps, 0, st>>>(in, out, changed, status, carry,
-                                                                                     h, w, n_tc, orig);
+                                                                                     h, w, n_tc, orig, go, to_zero);
   } else {
     vscan_tiles<kCoarse, false, kFwd><<<(unsigned)n_tiles, 32 * kTileWarps, 0, st>>>(in, out, changed, status,
-                                                                                      carry, h, w, n_tc, orig);
+                                                                                      carry, h, w, n_tc, orig, go,
+                                                                                      to_zero);
   }
   return cudaGetLastError();
 }
@@ -1437,7 +1461,8 @@ extern "C" int rwt_fine_bwd_vh(const void* in, void* scratch, void* out, void* f
   }
   e = ring_smem<false>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  row_ring<false><<<(h + band_rows - 1) / band_rows, threads, smem, st>>>(s, o, f, h, w, rows_per_step, band_rows);
+  row_ring<false><<<(h + band_rows - 1) / band_rows, threads, smem, st>>>(s, o, f, h, w, rows_per_step, band_rows,
+                                                                          nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1515,25 +1540,31 @@ extern "C" int rwt_coarse_bwd_vh(const void* in, void* scratch, void* out, void*
 // `scratch` aliases neither.  One coarse round on `stream`: the v-pass as
 // two column scans (forward under bit 24 c -> scratch, backward under bit
 // 25 in place on scratch, counting against c), then the h-pass scratch ->
-// out.  status: [changed, the forward scan's counter and tile flags, the
-// backward scan's, the carries of one scan], 1 + 2 * (1 + n_tiles) + 2 *
-// n_tiles * tile_cols int32 (ops/scan_merge.py vscan_plan), of which all
-// but the carries are zeroed here by one memset; changed ends as the number
-// of cells the v-pass and the h-pass changed.  vec: as for rwt_fine_fwd_v
-// (for c and scratch).  The row plan (ops/scan_merge.py row_plan with
-// coarse=True): `threads` > 0 runs the ring row kernel, `threads` == 0
-// (rows wider than the ring) the chunked run-min.  Does not synchronise,
-// returns cudaGetLastError().
-extern "C" int rwt_coarse_round(const void* c, void* scratch, void* out, void* status, int hc, int w, int vec,
-                                int rows_per_step, int band_rows, int threads, int smem, void* stream) {
+// out.  changed: one int32, not `go`, zeroed by the forward column scan's
+// first block (here, for an empty plane), which ends as the number of cells
+// the v-pass and the h-pass changed.  status: [the forward scan's counter
+// and tile flags, the backward scan's, the carries of one scan], 2 * (1 +
+// n_tiles) + 2 * n_tiles * tile_cols int32 (ops/scan_merge.py vscan_plan),
+// of which all but the carries are zeroed here.  go: null, or one int32
+// (the previous round's `changed`) read by each of the round's three
+// launches, which return at once when it is 0: such a round leaves the
+// planes as they were and `changed` 0, so a round that reads it as its `go`
+// stops too.  vec: as for rwt_fine_fwd_v (for c and scratch).  The row plan
+// (ops/scan_merge.py row_plan with coarse=True): `threads` > 0 runs the ring
+// row kernel, `threads` == 0 (rows wider than the ring) the chunked
+// run-min.  Does not synchronise, returns cudaGetLastError().
+extern "C" int rwt_coarse_round(const void* c, void* scratch, void* out, void* changed, const void* go, void* status,
+                                int hc, int w, int vec, int rows_per_step, int band_rows, int threads, int smem,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int32_t* ch = static_cast<int32_t*>(status);
+  int32_t* ch = static_cast<int32_t*>(changed);
+  const int32_t* g = static_cast<const int32_t*>(go);
   const int tc = vec ? 128 : 32;
   const long long n_tiles = (long long)((hc + kTileRows - 1) / kTileRows) * ((w + tc - 1) / tc);
   if (n_tiles > 0x3fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaMemsetAsync(ch, 0, (size_t)(3 + 2 * n_tiles) * sizeof(int32_t), st);
+  cudaError_t e = cudaMemsetAsync(status, 0, (size_t)(2 + 2 * n_tiles) * sizeof(int32_t), st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (hc == 0 || w == 0) return 0;
+  if (hc == 0 || w == 0) return static_cast<int>(cudaMemsetAsync(ch, 0, sizeof(int32_t), st));
   if (threads == 0) {
     if (w <= kRowCap) return static_cast<int>(cudaErrorInvalidValue);
   } else if (w > kRowCap || threads % 32 != 0 || threads > 1024 || rows_per_step < 1 || band_rows < 1 ||
@@ -1544,19 +1575,20 @@ extern "C" int rwt_coarse_round(const void* c, void* scratch, void* out, void* s
   const int32_t* i = static_cast<const int32_t*>(c);
   int32_t* s = static_cast<int32_t*>(scratch);
   int32_t* o = static_cast<int32_t*>(out);
-  int32_t* stat_f = ch + 1;
+  int32_t* stat_f = static_cast<int32_t*>(status);
   int32_t* stat_b = stat_f + 1 + n_tiles;
   int32_t* carry = stat_b + 1 + n_tiles;
-  e = vscan<true, true>(i, s, nullptr, stat_f, hc, w, vec, st, nullptr, carry, false);
+  e = vscan<true, true>(i, s, nullptr, stat_f, hc, w, vec, st, nullptr, carry, false, g, ch);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = vscan<true, false>(s, s, ch, stat_b, hc, w, vec, st, i, carry, false);
+  e = vscan<true, false>(s, s, ch, stat_b, hc, w, vec, st, i, carry, false, g);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (threads == 0) {
-    run_min_pass<true><<<(hc + 7) / 8, dim3(kChunks, 8), 0, st>>>(s, o, ch, hc, w);
+    run_min_pass<true><<<(hc + 7) / 8, dim3(kChunks, 8), 0, st>>>(s, o, ch, hc, w, g);
     return static_cast<int>(cudaGetLastError());
   }
   e = ring_smem<true>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  row_ring<true><<<(hc + band_rows - 1) / band_rows, threads, smem, st>>>(s, o, ch, hc, w, rows_per_step, band_rows);
+  row_ring<true><<<(hc + band_rows - 1) / band_rows, threads, smem, st>>>(s, o, ch, hc, w, rows_per_step, band_rows,
+                                                                          g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,6 +57,7 @@ padding.  The fine planes carry no aprons either: cells outside read as 0.
 from __future__ import annotations
 
 import functools
+import itertools
 import os
 import types
 
@@ -324,43 +325,108 @@ def _coarse_pass(c, dim: int, fwd_bit: int):
     return (c & ~_CVAL) | out, (out != x).sum(dtype=torch.int32)
 
 
-def coarse_round_plain(c, *, out=None, scratch=None):
-    """Plain twin of one coarse round: the v-pass over columns, then the
-    h-pass over rows.  Returns ``(plane, changed)``, ``changed`` a
-    one-element int32 tensor counting the cells each pass changed."""
-    _ext.launches["coarse_round_plain"] += 1
+def _check_round_words(c, out, go, changed):
+    for t in (go, changed):
+        if t is not None and (t.shape != (1,) or t.dtype != torch.int32 or t.device != c.device):
+            raise ValueError("a coarse round's go and changed are one-element int32 tensors on the plane's device")
+    if go is not None and out is not c:
+        raise ValueError("a coarse round with go runs in place (out is c)")
+    if go is not None and changed is not None and go.data_ptr() == changed.data_ptr():
+        raise ValueError("a coarse round's changed must not be its go")
+
+
+def _plain_round(c, out, go, changed) -> bool:
+    """The twin's round into ``out`` and ``changed``, uncounted; when ``go``
+    holds 0 it stops: ``out`` (which is ``c``) stays and ``changed`` reads
+    0.  Returns whether the round ran."""
+    if go is not None and not go.item():
+        changed.zero_()
+        return False
     c1, n1 = _coarse_pass(c, 0, _CB_VF)
     c2, n2 = _coarse_pass(c1, 1, _CB_HF)
-    return _into(out, c2), (n1 + n2).reshape(1)
+    out.copy_(c2)
+    changed.copy_((n1 + n2).reshape(1))
+    return True
+
+
+def coarse_round_plain(c, *, out=None, scratch=None, go=None, changed=None):
+    """Plain twin of one coarse round: the v-pass over columns, then the
+    h-pass over rows.  Returns ``(plane, changed)``, ``changed`` a
+    one-element int32 tensor counting the cells each pass changed (the one
+    given, when given).  ``go``: the previous round's ``changed``; the round
+    then runs in place, and when ``go`` holds 0 it stops at once: the plane
+    stays, ``changed`` reads 0, and it is counted as
+    ``coarse_round_skipped``."""
+    _check_round_words(c, out, go, changed)
+    out = torch.empty_like(c) if out is None else out
+    changed = _flag_on(c) if changed is None else changed
+    ran = _plain_round(c, out, go, changed)
+    _ext.launches["coarse_round_plain" if ran else "coarse_round_skipped"] += 1
+    return out, changed
 
 
 def coarse_round_kernel(c, *, out=None, scratch=None):
     """Launch the coarse round of csrc/scan_round.cu: the v-pass as two
     column scans from ``c`` into ``scratch``, then the h-pass into ``out``
     (which may be ``c`` itself) on the row route ``row_plan`` picks, counted
-    as ``coarse_round_ring`` or ``coarse_round_chunked``."""
+    at the launch as ``coarse_round``, ``coarse_round_launched`` and
+    ``coarse_round_ring`` or ``coarse_round_chunked``."""
     out, scratch = _round_planes(c, out, scratch)
+    changed = _flag_on(c)
+    launch = _round_launcher(c, out, scratch, changed)
+    launch(0, None)
+    launch.settle(1, 0)  # a round without go runs
+    return out, changed
+
+
+def _round_launcher(c, out, scratch, words):
+    """The coarse round's launcher on checked planes ``c`` -> ``out`` with
+    ``scratch``, and ``words``, int32 words on the device: its plan and
+    status buffer made once.  ``launch(i, g)`` queues one round that writes
+    its change count to ``words[i]``; with ``g`` not None it runs in place
+    and reads ``words[g]`` first, on the device, and stops at once when that
+    holds 0: the plane stays and ``words[i]`` reads 0.  Each launch is
+    counted at the launch as ``coarse_round_launched`` and its row route;
+    ``launch.settle(ran, skipped)``, called once the words are read, counts
+    the rounds that ran as ``coarse_round`` and those that stopped as
+    ``coarse_round_skipped``."""
     hc, w = c.shape
     vec = _vec(w, c, scratch)
     plan = row_plan(hc, w, _ext.sm_count(c.get_device()), coarse=True)
     vp = vscan_plan(hc, w, vec)
-    # [changed, the two column scans' counters and tile flags, one carry area]
-    status = torch.empty((1 + 2 * (1 + vp["n_tiles"]) + vp["status_ints"] - 1 - vp["n_tiles"],),
-                         dtype=torch.int32, device=c.device)
-    err = _ext.lib().rwt_coarse_round(
-        c.data_ptr(), scratch.data_ptr(), out.data_ptr(), status.data_ptr(), hc, w, int(vec),
-        plan["rows_per_step"], plan["band_rows"], plan["threads"], plan["smem"], _ext.stream_ptr(c),
-    )
-    changed = status[:1]
-    _ext.check(err, "rwt_coarse_round")
-    _ext.launches["coarse_round"] += 1
-    _ext.launches[f"coarse_round_{plan['route']}"] += 1
-    return out, changed
+    # [the two column scans' counters and tile flags, one carry area]
+    status = torch.empty((vp["status_ints"] + 1 + vp["n_tiles"],), dtype=torch.int32, device=c.device)
+    fn, planes = _ext.lib().rwt_coarse_round, (c.data_ptr(), scratch.data_ptr(), out.data_ptr())
+    rest = (status.data_ptr(), hc, w, int(vec), plan["rows_per_step"], plan["band_rows"], plan["threads"],
+            plan["smem"], _ext.stream_ptr(c))
+    base, route = words.data_ptr(), f"coarse_round_{plan['route']}"
+
+    def launch(i: int, g):
+        _ext.check(fn(*planes, base + 4 * i, None if g is None else base + 4 * g, *rest), "rwt_coarse_round")
+        _ext.launches["coarse_round_launched"] += 1
+        _ext.launches[route] += 1
+
+    launch.status = status  # held while the launcher is
+    launch.settle = _count_coarse_rounds
+    return launch
 
 
-def coarse_round(c, *, out=None, scratch=None):
-    """One round (v-pass, then h-pass) over the whole coarse plane."""
-    return _dispatch(coarse_round_kernel, coarse_round_plain, c)(c, out=out, scratch=scratch)
+def _plain_round_launcher(c, out, scratch, words):
+    """``_round_launcher``'s twin: each launch a ``coarse_round_plain``,
+    which counts itself."""
+
+    def launch(i: int, g):
+        coarse_round_plain(c, out=out, go=None if g is None else words[g : g + 1], changed=words[i : i + 1])
+
+    launch.settle = lambda ran, skipped: None
+    return launch
+
+
+def _count_coarse_rounds(ran: int, skipped: int):
+    """Count ``ran`` coarse rounds of the kernel as ``coarse_round`` and
+    ``skipped`` as ``coarse_round_skipped``."""
+    _ext.launches["coarse_round"] += ran
+    _ext.launches["coarse_round_skipped"] += skipped
 
 
 # -- coarse -> fine (csrc/coarse_broadcast.cu) --------------------------------
@@ -789,6 +855,63 @@ def _coarse_gate(w: int, n_labels: int) -> bool:
     return n_labels < 1 << 24 and w >= 3
 
 
+# Coarse rounds the tail queues a block (module constant; the fastest of
+# 1..8, or within 0.6% of it, in three sweeps on the H100, PERF.md).
+_TAIL_BLOCK = 4
+
+
+def _coarse_rounds(c) -> int:
+    """The coarse round in place on ``c`` until one changes no cell; returns
+    the rounds, that quiet round included.
+
+    The rounds are queued in blocks of ``k = _TAIL_BLOCK``, each writing
+    its change count into a word of one small array and taking the word of
+    the round before it as its ``go`` (the first round none), so once a
+    round is quiet the rounds after it stop on the device.  Block ``b + 1``
+    is queued before block ``b``'s words are read (copied into pinned host
+    memory and read after an event: one host read a block), so the card
+    always has a block queued while the host reads.  The loop ends at the
+    first block that holds a quiet round; the block queued after it stops
+    wholly, so ``k`` to ``2k - 1`` rounds stop a call.  Labels and
+    ``rounds`` are those of a loop that reads every round's count.  The
+    rounds go through one launcher (``_round_launcher`` on the card), so
+    that the host queues a round in a few microseconds; each launch is
+    counted as it is queued, and the rounds that ran and those that stopped
+    once their block is read."""
+    cuda, k = c.is_cuda, _TAIL_BLOCK
+    # Words 0..k-1 and k..2k-1: the change counts of even and odd blocks.
+    words = torch.empty((2 * k,), dtype=torch.int32, device=c.device)
+    host = torch.empty((2, k), dtype=torch.int32, pin_memory=cuda)
+    launch = _dispatch(_round_launcher, _plain_round_launcher, c)(c, c, torch.empty_like(c), words)
+    go = None
+
+    def queue(b: int):
+        nonlocal go
+        first = (b % 2) * k
+        for i in range(first, first + k):
+            launch(i, go)
+            go = i
+        h = host[b % 2]
+        h.copy_(words[first : first + k], non_blocking=cuda)
+        if not cuda:
+            return h, None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(c.device))
+        return h, done
+
+    rounds, block = 0, queue(0)
+    for b in itertools.count():
+        queued = queue(b + 1)
+        counts = _ext.host_read(block[0], after=block[1])
+        quiet = 0 in counts
+        ran = counts.index(0) + 1 if quiet else k
+        rounds += ran
+        launch.settle(ran, 2 * k - ran if quiet else 0)
+        if quiet:
+            return rounds
+        block = queued
+
+
 def component_min_coarse(labels, n_labels: int):
     """Component-min labels on the coarse engine; returns ``(labels,
     rounds)``.
@@ -796,9 +919,9 @@ def component_min_coarse(labels, n_labels: int):
     ``n_labels`` bounds the labels (1..n_labels); the coarse gate must hold
     (``component_min_labels`` checks it and runs the fine tail when it
     fails).  Rounds: ``coarse_round`` until one changes no cell (``rounds``
-    counts that quiet round), or with ``RWT_COARSE_MULTI=0`` the legacy
-    two-pass rounds until a pass 2 sees no violation.  The host reads one
-    flag per round.
+    counts that quiet round; ``_coarse_rounds``: one host read a block of
+    rounds), or with ``RWT_COARSE_MULTI=0`` the legacy two-pass rounds
+    until a pass 2 sees no violation (one host read a round).
     """
     _check_width(labels.shape[1])
     if n_labels >= 1 << 24:
@@ -810,13 +933,8 @@ def component_min_coarse(labels, n_labels: int):
             lambda y, k, out, scratch: cbwd_vh(y, _legacy_window(k), out=out, scratch=scratch),
         )
         return coarse_broadcast(c, labels), rounds
-    scratch = torch.empty_like(c)
-    rounds = 0
-    while True:
-        c, changed = coarse_round(c, out=c, scratch=scratch)
-        rounds += 1
-        if not _ext.host_read(changed, "item"):
-            return coarse_broadcast(c, labels), rounds
+    rounds = _coarse_rounds(c)
+    return coarse_broadcast(c, labels), rounds
 
 
 @spanned("rwt.tail")

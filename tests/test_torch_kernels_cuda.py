@@ -596,7 +596,7 @@ def test_relax_tile_and_host_read_counters(cuda):
     ``relax_tiles_skipped`` the skips that ``on_call`` sees: 0 on the first
     call, at most ``n_tiles`` after; a launch without tile state skips
     nothing.  One host read a relax call, and in the merging e2e one more a
-    tail round."""
+    block of coarse tail rounds."""
     img = torch.from_numpy(_field((1024, 1024), 254, seed=7)).to(cuda)
     v, key, lab, _ = pack.pack_kernel(img)
     plan = relax.relax_plan(1024, 1024, relax.DEFAULT_STEPS)
@@ -611,7 +611,8 @@ def test_relax_tile_and_host_read_counters(cuda):
     assert n["relax_tiles"] == plan["n_tiles"] * (len(skipped) + 1) and n["relax_tiles_skipped"] == sum(skipped)
     _ext.reset_launches()
     watershed_e2e(img, merging=True, device=cuda)
-    assert n["merge_tail"] == 1 and n["host_reads"] == n["relax"] + n["coarse_round"] > n["relax"]
+    blocks = -(-n["coarse_round"] // sm._TAIL_BLOCK)
+    assert n["merge_tail"] == 1 and n["host_reads"] == n["relax"] + blocks > n["relax"]
 
 
 def _rects(h, w):
@@ -810,8 +811,80 @@ def test_coarse_round_routes_match_twin(cuda, shape):
         if got[1].item() == 0:
             break
         assert rounds < 10000
-    assert _ext.launches["coarse_round"] == _ext.launches[f"coarse_round_{route}"] == rounds
+    n = _ext.launches
+    assert n["coarse_round"] == n["coarse_round_launched"] == n[f"coarse_round_{route}"] == rounds
     _assert_same([sm.coarse_broadcast_kernel(c.contiguous(), lab)], [sm.component_min_labels_plain(lab)])
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (1023, 1031), (33, 3), (300, 18440), "unaligned"])
+def test_coarse_round_go_on_the_card(cuda, shape):
+    """Through the tail's launcher: a round whose ``go`` holds 0 leaves the
+    plane and writes 0 to its ``changed``; one whose ``go`` is nonzero is
+    the round ``go=None`` runs, on both row routes and the scalar column
+    scan.  Each launch is counted as it is queued, the rounds that ran only
+    when settled.  The blocked tail on the card against the twins' blocked
+    tail: labels, rounds, rounds skipped and host reads."""
+    lab = _relaxed_labels((130, 260) if shape == "unaligned" else shape, seed=11)
+    c = sm.coarsen_kernel(lab)
+    if shape == "unaligned":
+        c = _unaligned(c)
+    before, scratch = c.clone(), torch.empty_like(c)
+    route = "chunked" if c.shape[1] > sm._ROW_CAP else "ring"
+    words = torch.tensor([0, 7], dtype=torch.int32, device=cuda)  # [go, changed]
+    _ext.reset_launches()
+    launch = sm._round_launcher(c, c, scratch, words)
+    launch(1, 0)
+    _assert_same([c, words], [before, torch.zeros_like(words)])
+    want = sm.coarse_round_plain(before)
+    words[0] = 3
+    launch(1, 0)
+    _assert_same([c, words[1:]], want)
+    n = _ext.launches
+    assert n["coarse_round_launched"] == n[f"coarse_round_{route}"] == 2
+    assert n["coarse_round"] == n["coarse_round_skipped"] == 0  # the caller settles them once read
+    launch.settle(1, 1)
+    assert n["coarse_round"] == n["coarse_round_skipped"] == 1
+    if shape == "unaligned":
+        return
+    _ext.reset_launches()
+    got, rounds = sm.component_min_coarse(lab, sm._CVAL)
+    torch.cuda.synchronize()
+    n = dict(_ext.launches)
+    _ext.reset_launches()
+    want, want_rounds = sm.component_min_coarse(lab.cpu(), sm._CVAL)
+    p = _ext.launches
+    assert torch.equal(got.cpu(), want) and rounds == want_rounds
+    assert n["coarse_round"] == p["coarse_round_plain"] == rounds
+    assert n["coarse_round_skipped"] == p["coarse_round_skipped"] and n["host_reads"] == p["host_reads"]
+    assert n["coarse_round_launched"] == n["coarse_round"] + n["coarse_round_skipped"]
+
+
+def test_blocked_coarse_tail_on_the_smoke_field(cuda):
+    """``chip_smoke.py``'s 4096^2 10% NaN-dot field: the blocked tail gives
+    the plane, bit for bit, and the rounds of ``go``-less rounds read one at
+    a time; it reads once a block and stops ``k`` to ``2k - 1`` rounds on
+    the device."""
+    rng = np.random.default_rng(0)  # the draws of chip_smoke.py's main()
+    img = rng.integers(0, 254, (4096, 4096)).astype(np.uint8)
+    img[rng.random(img.shape) < 0.1] = 255
+    lab = relax.relax_packed_planes(img, None, device="cuda")[1]
+    c, want_rounds = sm.coarsen_kernel(lab), 0
+    scratch = torch.empty_like(c)
+    while True:
+        c, changed = sm.coarse_round_kernel(c, out=c, scratch=scratch)
+        want_rounds += 1
+        if changed.item() == 0:
+            break
+    want = sm.coarse_broadcast_kernel(c, lab)
+    k = sm._TAIL_BLOCK
+    _ext.reset_launches()
+    got, rounds = sm.component_min_coarse(lab, sm._CVAL)
+    torch.cuda.synchronize()
+    n = _ext.launches
+    assert torch.equal(got, want) and rounds == want_rounds > k
+    assert n["coarse_round"] == rounds
+    assert n["coarse_round_ring"] == n["coarse_round_launched"] == rounds + n["coarse_round_skipped"]
+    assert n["host_reads"] == -(-rounds // k) and k <= n["coarse_round_skipped"] <= 2 * k - 1
 
 
 # Fine label shapes whose coarse planes the legacy pass 2 runs on: the

@@ -108,10 +108,18 @@ def test_span_is_the_shared_no_op_without_a_profiler(monkeypatch):
     assert all(a == c and np.array_equal(b, d) for (a, b), (c, d) in zip(rows, want_rows))
 
 
+def _tail_reads(n) -> int:
+    """The coarse tail's reads: one a block of ``_TAIL_BLOCK`` rounds, up to
+    the block that holds the quiet round."""
+    from rustronomy_watershed_tpu_torch.ops import scan_merge
+
+    return -(-n["coarse_round_plain"] // scan_merge._TAIL_BLOCK)
+
+
 @pytest.mark.parametrize("tail_legacy", [False, True])
 def test_host_reads_count_the_merging_flag_reads(monkeypatch, tail_legacy):
-    """One read a relax call and one a tail round (a coarse round, or a
-    legacy pass 2 with ``RWT_COARSE_MULTI=0``), and nothing else."""
+    """One read a relax call and, on the tail, one a block of coarse rounds,
+    or one a legacy pass 2 with ``RWT_COARSE_MULTI=0``, and nothing else."""
     from rustronomy_watershed_tpu_torch.ops import scan_merge
 
     monkeypatch.setattr(scan_merge, "_COARSE_MULTI", not tail_legacy)
@@ -120,14 +128,14 @@ def test_host_reads_count_the_merging_flag_reads(monkeypatch, tail_legacy):
     n = _ext.launches
     rounds = n["cbwd_vh_plain"] if tail_legacy else n["coarse_round_plain"]
     assert n["merge_tail"] == 1 and n["relax_plain"] > 0 and rounds > 0
-    assert n["host_reads"] == n["relax_plain"] + rounds
+    assert n["host_reads"] == n["relax_plain"] + (rounds if tail_legacy else _tail_reads(n))
     assert n["relax_tiles"] == n["relax_tiles_skipped"] == 0  # the twin runs no tile
 
 
 def test_host_reads_of_the_api_calls():
     """``transform_to_list``: the seed list, a read a relax call and the
-    compact planes; ``transform``: a read a relax call and a tail round,
-    and the labels."""
+    compact planes; ``transform``: a read a relax call and a block of tail
+    rounds, and the labels."""
     img = _nan_dots()
     ws = _ws()
     _ext.reset_launches()
@@ -137,4 +145,4 @@ def test_host_reads_of_the_api_calls():
     _ext.reset_launches()
     ws.transform(img, seeds)
     n = _ext.launches
-    assert n["merge_tail"] == 1 and n["host_reads"] == n["relax_plain"] + n["coarse_round_plain"] + 1
+    assert n["merge_tail"] == 1 and n["host_reads"] == n["relax_plain"] + _tail_reads(n) + 1

@@ -152,7 +152,6 @@ def _fake_kernels():
         return coarsen_kernel(lab)
 
     sm.coarsen_kernel = coarsen_routed
-    sm.coarse_round_kernel = as_kernel(sm.coarse_round_plain, "coarse_round")
     broadcast = as_kernel(sm.coarse_broadcast_plain, "coarse_broadcast")
 
     def broadcast_routed(c, lab):
@@ -169,13 +168,22 @@ def _fake_kernels():
         return bwd_vh(y, **kw)
 
     sm.bwd_vh_kernel = bwd_vh_routed
-    coarse_round = sm.coarse_round_kernel
 
-    def coarse_round_routed(c, **kw):
-        _ext.launches[f"coarse_round_{sm.row_plan(*c.shape, 132, coarse=True)['route']}"] += 1
-        return coarse_round(c, **kw)
+    def round_launcher(c, out, scratch, words):
+        """The twin's rounds, each counted at its launch as the kernel's
+        are, on the row route the card's plan would take."""
+        route = f"coarse_round_{sm.row_plan(*c.shape, 132, coarse=True)['route']}"
 
-    sm.coarse_round_kernel = coarse_round_routed
+        def launch(i, g):
+            sm._plain_round(c, out, None if g is None else words[g : g + 1], words[i : i + 1])
+            _ext.launches["coarse_round_launched"] += 1
+            _ext.launches[route] += 1
+
+        launch.settle = sm._count_coarse_rounds
+        return launch
+
+    sm._round_launcher = round_launcher
+    sm._check_cuda_planes = lambda *planes: None  # coarse_round_kernel's planes, on the CPU
     cbwd_vh = sm.cbwd_vh_kernel
 
     def cbwd_vh_routed(c, h_window=None, **kw):
