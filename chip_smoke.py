@@ -1116,6 +1116,12 @@ def main() -> int:
     check(torch.equal(e2e, want), "e2e labels == exact engine")
     check(int(e2e.max()) == len(seeds) and int(e2e[0].abs().max()) == 0, "e2e labels in range, border uncoloured")
     print(f"[6 e2e] {SIDE}^2 watershed_e2e equals the exact engine ({len(seeds)} seeds); launches {launches}")
+    check(launches["relax_sweeps"] == launches["relax"] * relax.DEFAULT_STEPS, "relax_sweeps = launches x steps")
+    check(SIDE * SIDE <= launches["relax_px_run"] <= launches["relax"] * SIDE * SIDE,
+          "relax_px_run: the first launch's plane, at most every launch's")
+    print(f"[6 e2e] relax over every launch: relax_px_run {launches['relax_px_run']} "
+          f"({launches['relax_px_run'] / (SIDE * SIDE):.4f} planes in {launches['relax']} launches), "
+          f"relax_sweeps {launches['relax_sweeps']}")
     seg_exact = want
 
     # -- 7: times on the card --------------------------------------------------

@@ -32,7 +32,11 @@ whose flags cover a centre rectangle smaller than the plane (a mesh tile's,
 parallel/tiled.py), ``relax_y0`` those that ran the y0 epilogue
 (``fwd_scan=True``).  ``relax_tiles`` adds each relax launch's tiles (its
 plan's ``n_tiles``) and ``relax_tiles_skipped`` the quiet tiles a skipping
-fixed point's launches skipped, as the host reads them with the flags.
+fixed point's launches skipped, as the host reads them with the flags;
+``relax_px_run`` the pixels of the centre tiles that each relax launch ran,
+clipped to the plane (a skipped tile adds 0; read with the flags too, or
+``h * w`` at the launch of a call without tile state), and
+``relax_sweeps`` each relax launch's ``steps``.
 ``coarse_round_launched`` counts every launch of the coarse round, as it
 is queued, and ``coarse_round_ring`` / ``coarse_round_chunked`` its row
 route; ``coarse_round`` counts the rounds that ran, ``coarse_round_skipped``
@@ -99,6 +103,8 @@ launches = {
     "relax_y0": 0,
     "relax_tiles": 0,
     "relax_tiles_skipped": 0,
+    "relax_px_run": 0,
+    "relax_sweeps": 0,
     "coarse_round_launched": 0,
     "coarse_round_skipped": 0,
     "host_reads": 0,

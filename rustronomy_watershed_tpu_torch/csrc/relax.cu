@@ -489,37 +489,52 @@ relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
 
 // The per-tile partials [sat, unclaimed interior, claimed border, least
 // claimed interior label] of all tiles into flags[2] (and flags[3..5] with
-// `stats`); `skipped` (may be null) gets the number of tiles whose chg
-// entry is 2.
+// `stats`).  `skipped` (may be null) gets three words: the number of tiles
+// whose chg entry is 2, then the pixels of the other tiles' centres
+// (tile_y x tile_x clipped to the h x w plane; tile t of a `gx`-wide grid
+// at row t / gx) as a 64-bit count, low word first.
 __global__ void __launch_bounds__(1024)
 relax_reduce(const int32_t* __restrict__ chg, const int4* __restrict__ part, int n_tiles,
-             int32_t* __restrict__ flags, int stats, int32_t* skipped) {
+             int32_t* __restrict__ flags, int stats, int32_t* skipped, int h, int w, int tile_y, int tile_x,
+             int gx) {
   __shared__ int s_red[5];
+  __shared__ unsigned long long s_px;
   if (threadIdx.x == 0) {
     s_red[0] = s_red[1] = s_red[2] = s_red[4] = 0;
     s_red[3] = kInf;
+    s_px = 0;
   }
   __syncthreads();
   int sat = 0, uncl = 0, border = 0, gmin = kInf, sk = 0;
+  unsigned long long px = 0;
   for (int t = threadIdx.x; t < n_tiles; t += blockDim.x) {
     const int4 p = part[t];
     sat |= p.x;
     uncl += p.y;
     border |= p.z;
     gmin = min(gmin, p.w);
-    if (skipped != nullptr) sk += chg[t] == 2;
+    if (skipped != nullptr) {
+      if (chg[t] == 2) {
+        ++sk;
+      } else {
+        const int ty = t / gx, tx = t - ty * gx;
+        px += (unsigned long long)min(tile_y, h - ty * tile_y) * (unsigned)min(tile_x, w - tx * tile_x);
+      }
+    }
   }
   sat = __reduce_or_sync(kFull, sat);
   uncl = __reduce_add_sync(kFull, uncl);
   border = __reduce_or_sync(kFull, border);
   gmin = __reduce_min_sync(kFull, gmin);
   sk = __reduce_add_sync(kFull, sk);
+  for (int o = 16; o > 0; o >>= 1) px += __shfl_down_sync(kFull, px, o);
   if ((threadIdx.x & 31) == 0) {
     atomicOr(&s_red[0], sat);
     atomicAdd(&s_red[1], uncl);
     atomicOr(&s_red[2], border);
     atomicMin(&s_red[3], gmin);
     atomicAdd(&s_red[4], sk);
+    atomicAdd(&s_px, px);
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -529,7 +544,11 @@ relax_reduce(const int32_t* __restrict__ chg, const int4* __restrict__ part, int
       flags[4] = s_red[2];
       flags[5] = s_red[3];
     }
-    if (skipped != nullptr) *skipped = s_red[4];
+    if (skipped != nullptr) {
+      skipped[0] = s_red[4];
+      skipped[1] = (int32_t)(uint32_t)(s_px & 0xffffffffull);
+      skipped[2] = (int32_t)(uint32_t)(s_px >> 32);
+    }
   }
 }
 
@@ -563,9 +582,11 @@ cudaError_t launch(const dim3& grid, int threads, size_t smem, cudaStream_t st, 
 // (written by the tiles that run; the reduction reads every tile's);
 // chg (may be null), one int32 per tile: 1 when a centre cell changed, 0
 // when none did, 2 when skipped; chg_prev (may be null) the previous call's
-// chg, which turns skipping on.  skipped (may be null): the number of tiles
-// skipped.  The centre rectangle [ctr_y0, ctr_y1) x [ctr_x0, ctr_x1) limits
-// the flags (not chg); a rectangle that is not the whole plane cannot be
+// chg, which turns skipping on.  skipped (may be null): three int32 words,
+// the number of tiles skipped, then the pixels of the centre tiles that
+// ran, clipped to the plane, as a 64-bit count (low word first).  The
+// centre rectangle [ctr_y0, ctr_y1) x [ctr_x0, ctr_x1) limits the flags
+// (not chg); a rectangle that is not the whole plane cannot be
 // combined with `stats`.  y0 (may be null): the y0 epilogue's (h, w) int32
 // plane, written here; it needs `stats`, the whole plane as the centre, no
 // chg_prev (every tile runs) and `scan_status`, the look-back's
@@ -611,6 +632,7 @@ extern "C" int rwt_relax(const void* v, const void* key_in, const void* lab_in, 
                                     chg, part, y0, scan_status, h, w, steps, d_bits, tile_y, tile_x, r, vec);
   if (e != cudaSuccess) return static_cast<int>(e);
   relax_reduce<<<1, 1024, 0, st>>>(static_cast<const int32_t*>(chg), static_cast<const int4*>(part), n_tiles,
-                                   static_cast<int32_t*>(flags), stats, static_cast<int32_t*>(skipped));
+                                   static_cast<int32_t*>(flags), stats, static_cast<int32_t*>(skipped), h, w, tile_y,
+                                   tile_x, static_cast<int>(grid.x));
   return static_cast<int>(cudaGetLastError());
 }

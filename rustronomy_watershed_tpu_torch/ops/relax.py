@@ -201,14 +201,25 @@ def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None, stats=F
 class _Tiles:
     """Tile state of a skipping fixed point on the card: the per-tile change
     flags of the last two calls (ping-pong), the per-tile partials of the
-    saturation bit and the statistics, and one flag buffer per call with a
-    slot for the count of skipped tiles after the flags."""
+    saturation bit and the statistics, and one flag buffer per call with
+    three words after the flags: the count of skipped tiles, then the
+    pixels of the centre tiles that ran (clipped to the plane) as a 64-bit
+    count, low word first."""
 
     def __init__(self, plan: dict, n_flags: int, device):
         self.plan, self.n_flags, self.calls = plan, n_flags, 0
         self.chg = torch.zeros((2, plan["n_tiles"]), dtype=torch.int32, device=device)
         self.part = torch.empty((plan["n_tiles"], 4), dtype=torch.int32, device=device)
-        self.buf = torch.empty((n_flags + 1,), dtype=torch.int32, device=device)
+        self.buf = torch.empty((n_flags + 3,), dtype=torch.int32, device=device)
+
+    def count(self, words: list):
+        """``(flags, skipped)`` of the host's read of ``buf`` (a list);
+        adds the skipped tiles to ``relax_tiles_skipped`` and the pixels
+        run to ``relax_px_run``."""
+        skipped, lo, hi = words[self.n_flags:]
+        _ext.launches["relax_tiles_skipped"] += skipped
+        _ext.launches["relax_px_run"] += (hi << 32) | (lo & 0xFFFFFFFF)
+        return words[: self.n_flags], skipped
 
     def next_call(self):
         """``(chg_prev or None, chg)`` for the next call: skipping needs the
@@ -223,8 +234,10 @@ def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=
     """Launch csrc/relax.cu: ``steps`` Jacobi sweeps of CUDA planes into
     ``out`` (fresh planes when None; never the input planes).  ``tiles``
     (relax_fixed_point's state) lets the call skip the tiles that the
-    previous call left quiet, and counts them after the flags in
-    ``tiles.buf``.  ``ctr`` limits the flags to a centre rectangle.
+    previous call left quiet, and counts them, and the pixels of the tiles
+    that ran, after the flags in ``tiles.buf`` (``_Tiles.count``); a call
+    without it runs every pixel, counted here in ``relax_px_run``.
+    ``ctr`` limits the flags to a centre rectangle.
     ``fwd_scan=True`` runs the y0 epilogue (counted as ``relax_y0``) and
     returns ``y0`` after the flags; it raises on a call that may skip tiles
     (one with a previous call in ``tiles``)."""
@@ -276,6 +289,9 @@ def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=
     _ext.check(err, "rwt_relax")
     _ext.launches["relax"] += 1
     _ext.launches["relax_tiles"] += plan["n_tiles"]
+    _ext.launches["relax_sweeps"] += steps
+    if tiles is None:
+        _ext.launches["relax_px_run"] += h * w
     if rect != (0, h, 0, w):
         _ext.launches["relax_ctr"] += 1
     if fwd_scan:
@@ -353,8 +369,7 @@ def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, s
         if tiles is None:
             f, skipped = _ext.host_read(flags), 0
         else:
-            *f, skipped = _ext.host_read(tiles.buf)
-            _ext.launches["relax_tiles_skipped"] += skipped
+            f, skipped = tiles.count(_ext.host_read(tiles.buf))
         if first:
             y0, y0_valid = y[0], not f[LAST]
         if on_call is not None:

@@ -47,7 +47,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import _ext
 from ..constants import INT32_MAX, NEVER_FILL, NORMAL_MAX, UNCOLOURED
 from ..ops import flood_block, priority, relax
 from ..ops.histogram import value_histogram
@@ -288,8 +287,7 @@ def _local_relax_packed_driver(img_tile, lab_tile, *, global_shape, n_labels, ma
             if tiles is None:
                 f = flags.tolist()
             else:
-                *f, skipped = tiles.buf.tolist()
-                _ext.launches["relax_tiles_skipped"] += skipped
+                f, _ = tiles.count(tiles.buf.tolist())
             nc, sat = f[relax.LAST], f[relax.SAT]
         new = refresh(src)
         moved = bool(torch.stack([(a != b).any() for a, b in zip(strips, new)]).any()) if new else False

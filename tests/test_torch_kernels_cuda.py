@@ -18,7 +18,7 @@ from rustronomy_watershed_tpu_torch.ops import scan_merge as sm
 from rustronomy_watershed_tpu_torch.ops.pipeline import watershed_e2e
 from rustronomy_watershed_tpu_torch.ops.seeds import local_extrema_mask, paint_seeds, seed_labels_from_mask
 from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
-from torch_fields import plateau, seed_lattice, serpentine
+from torch_fields import corridor, plateau, seed_lattice, serpentine
 
 pytestmark = pytest.mark.cuda
 
@@ -613,6 +613,77 @@ def test_relax_tile_and_host_read_counters(cuda):
     watershed_e2e(img, merging=True, device=cuda)
     blocks = -(-n["coarse_round"] // sm._TAIL_BLOCK)
     assert n["merge_tail"] == 1 and n["host_reads"] == n["relax"] + blocks > n["relax"]
+
+
+def test_relax_px_run_when_no_tile_is_skipped(cuda):
+    """A fixed point whose plan cannot skip (steps past the tile size) runs
+    every pixel in every launch, as does a launch without tile state:
+    ``relax_px_run`` = launches x h x w.  The field: a corridor that snakes
+    through the plane's odd rows from one painted seed, several launches
+    of 48 sweeps long, on a grid of 32 x 32 tiles with clipped edges."""
+    h, w = 97, 130
+    lab0 = torch.zeros((h, w), dtype=torch.int32, device=cuda)
+    lab0[1, 1] = 1
+    v, key, lab = pack.pack_domain(torch.from_numpy(corridor(h, w)).to(cuda), lab0)
+    assert not relax.relax_plan(h, w, 48)["skip"] and relax.relax_plan(h, w, 48)["grid"] == (4, 5)
+    _ext.reset_launches()
+    relax.relax_fixed_point(v, key.clone(), lab.clone(), steps=48)
+    n = _ext.launches
+    assert n["relax"] >= 2 and n["relax_tiles_skipped"] == 0 and n["relax_px_run"] == n["relax"] * h * w
+    relax.relax_block(v, key, lab, 8)
+    assert n["relax_px_run"] == n["relax"] * h * w
+
+
+def test_relax_px_run_counts_the_tiles_that_ran(cuda):
+    """Call by call, ``relax_px_run`` adds the pixels of the tiles that
+    ``quiet_tiles`` of the previous call's tile flags leaves running, the
+    edge tiles of a 4096 x 4100 plane clipped to it (64 rows, 68 columns),
+    and ``relax_tiles_skipped`` the others."""
+    h, w, steps = 4096, 4100, relax.DEFAULT_STEPS
+    img = torch.from_numpy(_field((h, w), 254, seed=11)).to(cuda)
+    v, key, lab, _ = pack.pack_kernel(img)
+    plan = relax.relax_plan(h, w, steps)
+    gy, gx = plan["grid"]
+    rows = torch.clamp(h - torch.arange(gy) * plan["tile_y"], max=plan["tile_y"])
+    cols = torch.clamp(w - torch.arange(gx) * plan["tile_x"], max=plan["tile_x"])
+    assert (int(rows[-1]), int(cols[-1])) == (64, 68)
+    px = (rows[:, None] * cols[None, :]).to(cuda)
+    assert int(px.sum()) == h * w
+    tiles = relax._Tiles(plan, 3, cuda)
+    src, dst = (key, lab), (torch.empty_like(key), torch.empty_like(lab))
+    _ext.reset_launches()
+    n, skips = _ext.launches, []
+    while True:
+        run = torch.ones((gy, gx), dtype=torch.bool, device=cuda)
+        if tiles.calls:
+            run = ~relax.quiet_tiles(tiles.chg[(tiles.calls + 1) % 2].view(gy, gx))
+        before = n["relax_px_run"]
+        k2, l2, _ = relax.relax_block(v, *src, steps, out=dst, tiles=tiles)
+        f, skipped = tiles.count(tiles.buf.tolist())
+        assert n["relax_px_run"] - before == int(px[run].sum()) and skipped == int((~run).sum())
+        skips.append(skipped)
+        src, dst = (k2, l2), src
+        if not f[relax.LAST]:
+            break
+    assert len(skips) >= 3 and skips[0] == 0 and max(skips) > 0 and n["relax_tiles_skipped"] == sum(skips)
+    assert h * w < n["relax_px_run"] < n["relax"] * h * w
+
+
+def test_relax_sweeps_count_each_launch_steps(cuda):
+    """``relax_sweeps`` adds each launch's ``steps``: a fixed point of 8 and
+    one of 12, a lone launch of 5, and the segmenting e2e."""
+    img = torch.from_numpy(_field((512, 640), 254, seed=5)).to(cuda)
+    v, key, lab, _ = pack.pack_kernel(img)
+    _ext.reset_launches()
+    n = _ext.launches
+    relax.relax_fixed_point(v, key.clone(), lab.clone())
+    eights = n["relax"]
+    relax.relax_fixed_point(v, key.clone(), lab.clone(), steps=12)
+    relax.relax_block(v, key, lab, 5)
+    assert n["relax_sweeps"] == 8 * eights + 12 * (n["relax"] - eights - 1) + 5
+    _ext.reset_launches()
+    watershed_e2e(img, device=cuda)
+    assert n["relax"] >= 2 and n["relax_sweeps"] == n["relax"] * relax.DEFAULT_STEPS
 
 
 def _rects(h, w):

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from rustronomy_watershed_tpu_torch import _ext
 from rustronomy_watershed_tpu_torch.constants import _INF
 from rustronomy_watershed_tpu_torch.ops import relax
 from rustronomy_watershed_tpu_torch.ops.pack import pack_domain, pack_plain
@@ -88,6 +89,22 @@ def test_quiet_tiles(hot, busy):
 def test_quiet_tiles_treats_skipped_as_unchanged():
     assert relax.quiet_tiles(_changed((3, 3), [(1, 1)], value=2)).all()
     assert relax.quiet_tiles(_changed((1, 1), [])).all() and not relax.quiet_tiles(_changed((1, 1), [(0, 0)])).any()
+
+
+def test_tile_state_reads_the_counts_after_the_flags():
+    """``_Tiles.count`` splits the host's read of a call's buffer into its
+    flags and skipped tiles, and adds the skipped tiles and the 64-bit count
+    of pixels run (its low word read back as the signed int32 the buffer
+    holds) to the launch counters."""
+    tiles = relax._Tiles(relax.relax_plan(300, 400, 8), 3, "cpu")
+    assert tiles.buf.shape == (3 + 3,)
+    px = 3 * 2**32 + 2**31 + 5
+    _ext.reset_launches()
+    f, skipped = tiles.count([1, 0, 1, 7, (px & 0xFFFFFFFF) - 2**32, px >> 32])
+    assert f == [1, 0, 1] and skipped == 7
+    assert _ext.launches["relax_tiles_skipped"] == 7 and _ext.launches["relax_px_run"] == px
+    tiles.count([0, 0, 0, 0, 12544, 0])
+    assert _ext.launches["relax_tiles_skipped"] == 7 and _ext.launches["relax_px_run"] == px + 12544
 
 
 def _tile_slices(shape, ty, tx):
