@@ -51,6 +51,9 @@ round's flag, the seed list, the compact planes of
 ``transform_to_list`` and the labels or sizes a public call returns.  A sync
 inside a torch op (``nonzero``, boolean-mask indexing, ``unique``, a copy
 from pageable memory) is not counted.
+``curve_block_reused`` and ``curve_block_new`` count the pooled-size result
+blocks of the merged-curve tail (ops/merge_curve.py ``ResultBlocks``): taken
+from the pool of released blocks, or mapped fresh.
 """
 
 from __future__ import annotations
@@ -108,6 +111,8 @@ launches = {
     "coarse_round_launched": 0,
     "coarse_round_skipped": 0,
     "host_reads": 0,
+    "curve_block_reused": 0,
+    "curve_block_new": 0,
 }
 
 _lib = None

@@ -25,6 +25,10 @@ curves in one native C++ pass (parity/native.py; the NumPy pair
 
 from __future__ import annotations
 
+import mmap
+import threading
+import weakref
+
 import numpy as np
 import torch
 
@@ -195,6 +199,85 @@ def merged_sizes_host(cum: np.ndarray, lo: np.ndarray, hi: np.ndarray, act: np.n
     return out
 
 
+# Result blocks of at least this many bytes, and of a width other than K+1,
+# come from ``_BLOCKS``: the size above which ``_expand_rows`` hands out
+# views of the block (models/base.py), so that the user's release of a
+# result is the release of its block.
+POOL_MIN_BYTES = 64 * 1024 * 1024
+
+
+class ResultBlocks:
+    """A one-slot pool of released ``(levels, width)`` int64 result blocks.
+
+    A fresh block of the reference's row width (2.1 GB at 1024²) costs the
+    kernel's fault and zeroing of every page the pass writes, about three
+    times the pass itself.  A pooled block is an anonymous mapping that
+    this class owns; a finalizer on its base array hands the mapping back
+    once the last view of it has died, so a block is handed out only when
+    nothing else can see it.  A second released block is dropped (its
+    mapping is unmapped), as are pooled blocks of another shape."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._slot = None  # (mapping, (levels, width)) or None
+
+    def take(self, levels: int, width: int, copy_w: int) -> np.ndarray:
+        """A ``(levels, width)`` int64 block that reads 0 outside each
+        row's first ``copy_w`` columns (which the caller overwrites)."""
+        with self._lock:
+            held, self._slot = self._slot, None
+        if held is not None and held[1] == (levels, width):
+            mm = held[0]
+            _zero_row_tails(mm, levels, width, copy_w)
+            _ext.launches["curve_block_reused"] += 1
+        else:
+            held = None  # another shape: its mapping is unmapped here
+            # Private: MADV_DONTNEED zero-fills a private anonymous page,
+            # while a shared one (mmap's default) keeps its contents.
+            mm = mmap.mmap(-1, levels * width * 8, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS)
+            _ext.launches["curve_block_new"] += 1
+        base = np.frombuffer(mm, dtype=np.int64)
+        weakref.finalize(base, self._give_back, mm, (levels, width)).atexit = False
+        return base.reshape(levels, width)
+
+    def _give_back(self, mm, shape) -> None:
+        # Runs as the base array dies, while its export of ``mm`` still
+        # holds: the mapping is kept (or dropped) here, never closed.
+        with self._lock:
+            if self._slot is None:
+                self._slot = (mm, shape)
+
+    def clear(self) -> None:
+        """Drop the pooled block."""
+        with self._lock:
+            self._slot = None
+
+
+def _zero_row_tails(mm, levels: int, width: int, copy_w: int) -> None:
+    """Make columns ``[copy_w, width)`` of every row read 0 again, whatever
+    the last result or its user wrote there: whole pages are dropped
+    (``MADV_DONTNEED``; an anonymous page then reads as a fresh zero page,
+    and a page never touched costs nearly nothing), the partial pages at
+    either end of the span cleared.  Columns ``[0, copy_w)`` are left for
+    the pass to overwrite, and the pages it writes stay resident."""
+    if copy_w >= width:
+        return
+    flat = np.frombuffer(mm, dtype=np.int64)
+    page = mmap.PAGESIZE
+    for row in range(levels):
+        a, b = (row * width + copy_w) * 8, (row + 1) * width * 8
+        pa, pb = -(-a // page) * page, b // page * page
+        if pa >= pb:
+            flat[a // 8 : b // 8] = 0
+            continue
+        flat[a // 8 : pa // 8] = 0
+        flat[pb // 8 : b // 8] = 0
+        mm.madvise(mmap.MADV_DONTNEED, pa, pb - pa)
+
+
+_BLOCKS = ResultBlocks()
+
+
 @spanned("rwt.api.curve_tail")
 def merged_curve_host(
     labels_np, lv8_np, n_labels: int, max_water_level: int, lo, hi, act,
@@ -203,8 +286,16 @@ def merged_curve_host(
     """``(levels, out_width or K+1)`` merged sizes from the compact planes:
     the native C++ pass (parity/native.py), as the JAX package's tail runs.
     Columns beyond K+1 are zeros; representatives at or above
-    ``out_width`` are cut."""
-    return native_merged_curve(labels_np, lv8_np, n_labels, max_water_level, lo, hi, act, out_width=out_width)
+    ``out_width`` are cut.  A block of at least ``POOL_MIN_BYTES`` whose
+    width is not K+1 comes from the pool of released blocks."""
+    k1, levels = n_labels + 1, max_water_level + 1
+    width = k1 if out_width is None else out_width
+    out = None
+    if width != k1 and levels * width * 8 >= POOL_MIN_BYTES:
+        out = _BLOCKS.take(levels, width, min(k1, width))
+    return native_merged_curve(
+        labels_np, lv8_np, n_labels, max_water_level, lo, hi, act, out_width=out_width, out=out
+    )
 
 
 def merged_curve_plain(

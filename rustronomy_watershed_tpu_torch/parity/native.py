@@ -110,12 +110,16 @@ def native_transform(
 
 def native_merged_curve(
     labels, lv8, n_labels: int, max_water_level: int, lo, hi, act, out_width: int | None = None,
+    out: np.ndarray | None = None,
 ) -> np.ndarray:
     """``(levels, out_width or K+1)`` int64 merged per-level lake sizes from
     the compact planes in one pass (counting-sorted level streaming,
     incremental per-root sums); equal to ops/merge_curve.py's NumPy pair.
-    Columns in ``[K+1, out_width)`` stay zero (untouched calloc pages);
-    representatives at or above ``out_width`` are cut."""
+    The pass writes the first ``min(K+1, out_width)`` columns of each row;
+    the others stay zero (untouched calloc pages); representatives at or
+    above ``out_width`` are cut.  ``out``: a C-contiguous, writeable int64
+    block of that shape to write into and return, which the caller
+    guarantees reads 0 outside those columns."""
     labels = np.ascontiguousarray(labels, dtype=np.int32).reshape(-1)
     lv8 = np.ascontiguousarray(lv8, dtype=np.uint8).reshape(-1)
     if lv8.size != labels.size:
@@ -129,7 +133,11 @@ def native_merged_curve(
                          ("act", act, levels)):
         if a.size and (int(a.min()) < 0 or int(a.max()) >= top):
             raise ValueError(f"{name} outside [0, {top})")
-    out = np.zeros((levels, k1 if out_width is None else out_width), dtype=np.int64)
+    shape = (levels, k1 if out_width is None else out_width)
+    if out is None:
+        out = np.zeros(shape, dtype=np.int64)
+    elif out.shape != shape or out.dtype != np.int64 or not (out.flags.c_contiguous and out.flags.writeable):
+        raise ValueError(f"out must be a C-contiguous writeable int64 block of shape {shape}")
     rc = lib().merged_curve_oracle(
         labels.ctypes.data, lv8.ctypes.data, labels.size, k1, levels,
         lo.ctypes.data, hi.ctypes.data, act.ctypes.data, lo.size, out.ctypes.data, out.shape[1],
