@@ -22,11 +22,15 @@ mesh (parallel/tiled.py, SPMD: every rank calls it with the full image and
 gets the full result): ``transform`` on the tiled packed engine; the
 per-level API and pure observers from one tiled pass's claim planes and
 the host tails; the host-stepped loop on ``MeshLevelStepper``; and
-``transform_batch`` over a ``"batch"`` dim.
+``transform_batch`` over a ``"batch"`` dim.  Two methods own the engine
+for every entry: ``_final_labels`` (one device, the checkpointed packed
+route or the mesh) and ``_compact_planes`` (one relaxation pass's host
+planes); both apply the saturation rule through ``_exact_rerun``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import time
@@ -43,9 +47,7 @@ from ..ops.flood import flood_candidates, flood_candidates_random, flood_sweep_r
 from ..ops.level_driver import _flood_step, level_step, level_step_counted, run_levels_impl
 from ..ops.ckpt_relax import ckpt_transform
 from ..ops.merge import merge_touching
-from ..ops.merge_curve import (
-    _fetch_planes, iter_history_from_planes, merge_edges, merged_curve_host, relax_history, relax_merging_sizes,
-)
+from ..ops.merge_curve import _device_curves, _fetch_planes, device_planes, iter_history_from_planes, merged_curve_host
 from ..ops.preprocess import pre_process
 from ..ops.seeds import local_extrema_mask, paint_seeds, seed_array
 from ..parity.native import native_transform
@@ -83,7 +85,7 @@ def _warn_saturation():
         "(ops/relax.py); re-running on the exact relaxation engine "
         "(ops/priority.py, 32-bit ring index)",
         RuntimeWarning,
-        stacklevel=4,  # the caller of the public method
+        stacklevel=5,  # the caller of transform or transform_batch
     )
 
 
@@ -226,23 +228,9 @@ class _WatershedBase(WatershedUtils):
         return partial(flood_sweep_random, u=self._uniform_plane(shape, index))
 
     def _clone_with_hook(self, hook):
-        return type(self)(
-            max_water_level=self.max_water_level,
-            edge_correction=self.edge_correction,
-            wlvl_hook=hook,
-            plot_path=self.plot_path,
-            plot_colour_map=self.plot_colour_map,
-            progress=self.progress,
-            debug=self.debug,
-            sweep_fn=self.sweep_fn,
-            backend=self.backend,
-            device=self.device,
-            checkpoint_dir=self.checkpoint_dir,
-            checkpoint_every=self.checkpoint_every,
-            tie_break=self.tie_break,
-            tie_break_seed=self.tie_break_seed,
-            mesh=self.mesh,
-        )
+        clone = copy.copy(self)
+        clone.wlvl_hook = hook
+        return clone
 
     @spanned("rwt.api.prepare")
     def _prepare(self, input_img, seeds):
@@ -258,6 +246,15 @@ class _WatershedBase(WatershedUtils):
         dev = _ext.resolve_device(self.device)
         return torch.from_numpy(img).to(dev), torch.from_numpy(labels0).to(dev)
 
+    def _prepare_batch(self, imgs, seeds_list):
+        """``_prepare`` of a ``(b, h, w)`` stack, on the host: ``(imgs,
+        painted labels, seed coordinate arrays, n_labels)``."""
+        if self.edge_correction:
+            imgs = np.pad(imgs, ((0, 0), (1, 1), (1, 1)), constant_values=ALWAYS_FILL)
+        coords = [seed_array(s) for s in seeds_list]
+        labels0 = np.stack([paint_seeds(imgs.shape[1:], c) for c in coords])
+        return imgs, labels0, coords, max((len(c) for c in coords), default=0)
+
     def _needs_host_loop(self) -> bool:
         return (
             self.wlvl_hook is not None
@@ -272,7 +269,8 @@ class _WatershedBase(WatershedUtils):
         relax-plane snapshots (ops/ckpt_relax.py) instead of the host loop.
         The JAX package takes this path only on its Pallas engine, so on
         the CPU its ``'auto'`` ('relax' there) steps the levels instead;
-        the labels are equal either way."""
+        the labels are equal either way.  A mesh checkpoints on the host
+        loop."""
         return (
             self.checkpoint_dir is not None
             and self.wlvl_hook is None
@@ -284,69 +282,92 @@ class _WatershedBase(WatershedUtils):
             and self._resolved_backend() == "packed"
         )
 
-    def _run(self, img, labels0, *, sweep_fn=None, checkpointer=None, **kw):
-        """run_levels_impl on the configured engine (ckpt_transform with a
-        ``checkpointer``); a d-field saturation of the packed engine (a
-        >= 2^23-pixel equal-level plateau) warns and re-runs on the exact
-        engine.  ``sweep_fn`` defaults to the effective sweep of the
-        image's shape."""
-        kw.update(max_water_level=self.max_water_level, merging=self._merging, device=img.device)
-        if checkpointer is None:
+    def _planes_serve(self) -> bool:
+        """Whether one relaxation pass's compact planes serve the per-level
+        entries (``transform_to_list``, ``transform_history``): on the
+        relaxation engines, and on a mesh whatever the backend (one tiled
+        pass's claim planes, models/base.py:689-736 of the JAX package).
+        Elsewhere the level sweep collects them."""
+        return self.mesh is not None or self._resolved_backend() in ("packed", "relax")
+
+    # -- the engine: final labels or compact planes ---------------------------
+
+    def _final_labels(self, img, labels0, *, n_labels: int, tiled: bool = True, sweep_fn=None,
+                      checkpointer=None, **kw):
+        """The final labels of the configured engine: tiled over the mesh
+        (the packed engine, whatever the backend; ``tiled=False`` stays on
+        this device), ``ckpt_transform`` with a ``checkpointer``, else
+        ``run_levels_impl`` (``sweep_fn`` defaults to the effective sweep of
+        the image's shape; ``kw`` may declare a stacked batch).  A saturated
+        packed pass re-runs on the exact engine (``_exact_rerun``)."""
+        kw.update(n_labels=n_labels, max_water_level=self.max_water_level, merging=self._merging)
+        if tiled and self.mesh is not None:
+            from ..parallel.tiled import _tiled_run
+
+            labels, _, starved = _tiled_run(img, labels0, self.mesh, **kw)
+        elif checkpointer is not None:
+            labels, starved = ckpt_transform(img, labels0, checkpointer=checkpointer, device=img.device, **kw)
+        else:
             if sweep_fn is None:
                 sweep_fn = self._effective_sweep_fn(img.shape)
             labels, starved = run_levels_impl(
-                img, labels0, backend=self._resolved_backend(), with_flags=True, sweep_fn=sweep_fn, **kw
+                img, labels0, backend=self._resolved_backend(), with_flags=True, sweep_fn=sweep_fn,
+                device=img.device, **kw,
             )
-        else:
-            labels, starved = ckpt_transform(img, labels0, checkpointer=checkpointer, **kw)
-        if starved:
-            _warn_saturation()
-            labels = run_levels_impl(img, labels0, backend="relax", **kw)
-        return labels
+        return self._exact_rerun(img, labels0, **kw) if starved else labels
 
-    def _run_mesh(self, img, labels0, *, n_labels: int):
-        """The transform tiled over the mesh (every rank calls it); a
-        d-field saturation anywhere on the mesh warns on every rank and
-        re-runs on this rank's device on the exact engine (every rank holds
-        the full image, so no collective is needed).  The JAX mesh drops
-        the saturation flag: a deliberate divergence (ROADMAP queue 3)."""
-        from ..parallel.tiled import _tiled_run
-
-        kw = dict(n_labels=n_labels, max_water_level=self.max_water_level, merging=self._merging)
-        labels, _, starved = _tiled_run(img, labels0, self.mesh, **kw)
-        if starved:
-            _warn_saturation()
-            labels = run_levels_impl(img, labels0, backend="relax", device=img.device, **kw)
-        return labels
-
-    def _mesh_planes(self, img, labels0, *, n_labels: int):
-        """The compact planes of one tiled relax pass (``collect='claims'``,
-        segmenting labels) as host arrays ``(labels, claim levels as u8,
-        lo, hi, act)``: the merge edges for the merging variant, none for
-        segmenting (models/base.py:689-736 of the JAX package).  None when
-        the packed key's d field saturated somewhere on the mesh: it warns,
-        and the caller runs the single device's exact engine."""
-        from ..parallel.tiled import _tiled_run
-
+    def _compact_planes(self, img, labels0, *, n_labels: int):
+        """The host compact planes ``(labels, claim levels as u8, lo, hi,
+        act)`` of one relaxation pass, on the packed or exact engine
+        (ops/merge_curve.py) or tiled over the mesh (``collect='claims'``,
+        segmenting labels): the merge edges for the merging variant, none
+        for segmenting.  A saturated packed pass re-runs on the exact
+        engine (``_exact_rerun``)."""
         mwl = self.max_water_level
-        (labels, claim), _, starved = _tiled_run(
-            img, labels0, self.mesh, n_labels=n_labels, max_water_level=mwl, merging=False, collect="claims"
-        )
-        if starved:
-            _warn_saturation()
-            return None
-        if self._merging:
-            edges = merge_edges(labels, claim, max_water_level=mwl)[:3]
-        else:
-            edges = (torch.zeros((0,), dtype=torch.int32, device=img.device),) * 3
-        return _fetch_planes(labels, claim.clamp(0, mwl + 1).to(torch.uint8), edges)
+        if self.mesh is not None:
+            from ..parallel.tiled import _tiled_run
 
-    def _planes_history(self, planes, n_labels: int):
-        """``iter_history_from_planes`` of ``_mesh_planes``'s planes."""
-        labels_np, lv8_np, lo, hi, act = planes
-        if self._merging:
-            return iter_history_from_planes(labels_np, lv8_np, self.max_water_level, lo, hi, act, n_labels=n_labels)
-        return iter_history_from_planes(labels_np, lv8_np, self.max_water_level)
+            (labels, claim), _, starved = _tiled_run(
+                img, labels0, self.mesh, n_labels=n_labels, max_water_level=mwl, merging=False, collect="claims"
+            )
+            planes = device_planes(labels, claim, max_water_level=mwl, with_edges=self._merging)
+        else:
+            planes, starved = self._relax_pass(img, labels0, n_labels, self._resolved_backend())
+        if starved:
+            planes = self._exact_rerun(img, labels0, n_labels=n_labels, planes=True)
+        return _fetch_planes(*planes)
+
+    def _relax_pass(self, img, labels0, n_labels: int, backend: str):
+        """``(device planes, starved)`` of one relaxation pass on this
+        device."""
+        _, planes, starved = _device_curves(
+            img, labels0, n_labels=n_labels, max_water_level=self.max_water_level, backend=backend,
+            with_final=False, with_edges=self._merging, device=img.device,
+        )
+        return planes, starved
+
+    def _exact_rerun(self, img, labels0, *, n_labels: int, planes: bool = False, **kw):
+        """The saturation rule, for every route: the packed key's d field
+        saturated (on this device, or anywhere on the mesh), so warn and
+        re-run on the exact engine on this rank's device; every rank holds
+        the full image, so no collective is needed.  The JAX mesh drops the
+        flag: a deliberate divergence (ROADMAP queue 3).  Returns the device
+        planes with ``planes=True``, else the final labels (``kw`` as for
+        ``run_levels_impl``); ``img`` and ``labels0`` may be ``(b, h, w)``
+        stacks of the images to re-run, warned about once."""
+        _warn_saturation()
+        if planes:
+            return self._relax_pass(img, labels0, n_labels, "relax")[0]
+        run = partial(run_levels_impl, n_labels=n_labels, backend="relax", device=img.device, **kw)
+        if img.dim() == 3:
+            return torch.stack([run(a, b) for a, b in zip(img, labels0)])
+        return run(img, labels0)
+
+    def _snapshots(self, img, labels0, n_labels: int):
+        """``(level, snapshot)`` pairs rebuilt from the compact planes, one
+        at a time."""
+        labels_np, lv8_np, lo, hi, act = self._compact_planes(img, labels0, n_labels=n_labels)
+        return iter_history_from_planes(labels_np, lv8_np, self.max_water_level, lo, hi, act, n_labels=n_labels)
 
     def _native(self, input_img, seeds, **kw):
         return native_transform(
@@ -359,37 +380,28 @@ class _WatershedBase(WatershedUtils):
         ``device_output=True``).  With a hook, plots, progress, debug or
         per-level checkpoints the levels are observed on the way and the
         last level's view is the result."""
+        ckpt_fast = self._ckpt_fast_path()
         if self.backend == "native" and not self._needs_host_loop():
             out = self._native(input_img, seeds).astype(np.int32)
-            return torch.from_numpy(out).to(_ext.resolve_device(self.device)) if device_output else out
-        if self._ckpt_fast_path():
-            img, labels0 = self._prepare(input_img, seeds)
-            ckpt = TransformCheckpointer(self.checkpoint_dir, self.checkpoint_every)
-            labels = self._run(img, labels0, n_labels=len(seeds), checkpointer=ckpt)
-            return labels if device_output else _ext.host_read(labels, "numpy")
-        if self._needs_host_loop():
+        elif self._needs_host_loop() and not ckpt_fast:
             clone = self._clone_with_hook(
                 lambda ctx: ctx.colours.copy() if ctx.water_level == ctx.max_water_level else None
             )
             out = clone._host_stepped(input_img, seeds)[-1]
-            return torch.from_numpy(out).to(_ext.resolve_device(self.device)) if device_output else out
-        img, labels0 = self._prepare(input_img, seeds)
-        if self.mesh is not None:
-            labels = self._run_mesh(img, labels0, n_labels=len(seeds))
+        else:
+            img, labels0 = self._prepare(input_img, seeds)
+            ckpt = TransformCheckpointer(self.checkpoint_dir, self.checkpoint_every) if ckpt_fast else None
+            labels = self._final_labels(img, labels0, n_labels=len(seeds), checkpointer=ckpt)
             return labels if device_output else _ext.host_read(labels, "numpy")
-        labels = self._run(img, labels0, n_labels=len(seeds))
-        return labels if device_output else _ext.host_read(labels, "numpy")
+        return torch.from_numpy(out).to(_ext.resolve_device(self.device)) if device_output else out
 
     def transform_with_hook(self, input_img, seeds) -> list:
         """Run the transform, calling the hook at each water level; returns
         the hook's results (empty without a hook), like the reference
         (src/lib.rs:1509-1521)."""
-        if self.wlvl_hook is None and not self._needs_host_loop():
-            if self.mesh is not None:
-                self.transform(input_img, seeds, device_output=True)
-                return []
+        if not self._needs_host_loop():
             img, labels0 = self._prepare(input_img, seeds)
-            self._run(img, labels0, n_labels=len(seeds))
+            self._final_labels(img, labels0, n_labels=len(seeds))
             return []
         return self._host_stepped(input_img, seeds)
 
@@ -426,32 +438,20 @@ class _WatershedBase(WatershedUtils):
         img, labels0 = self._prepare(input_img, seeds)
         if counts_length is None:
             counts_length = img.numel() + 1
-        backend = self._resolved_backend()
-        kw = dict(n_labels=len(seeds), max_water_level=self.max_water_level, merging=self._merging)
-        if self.mesh is not None:
-            # One tiled relax pass and the host tail (models/base.py:689-736
-            # of the JAX package); a saturated pass runs the exact engine.
-            planes = self._mesh_planes(img, labels0, n_labels=len(seeds))
-            if planes is not None:
-                sizes = merged_curve_host(*planes[:2], len(seeds), self.max_water_level, *planes[2:],
-                                          out_width=counts_length)
-                return _expand_rows(sizes, counts_length, self.max_water_level, copy)
-            backend = "relax"
-        if backend in ("packed", "relax"):
+        n_labels, mwl = len(seeds), self.max_water_level
+        if self._planes_serve():
             # One relaxation pass, the compact planes to the host, and the
             # host tail (ops/merge_curve.py).
-            kw.update(with_final=False, out_width=counts_length, device=img.device)
-            _, sizes, starved = relax_merging_sizes(img, labels0, backend=backend, **kw)
-            if starved:
-                _warn_saturation()
-                _, sizes, _ = relax_merging_sizes(img, labels0, backend="relax", **kw)
+            labels_np, lv8_np, lo, hi, act = self._compact_planes(img, labels0, n_labels=n_labels)
+            sizes = merged_curve_host(labels_np, lv8_np, n_labels, mwl, lo, hi, act, out_width=counts_length)
         else:
             _, sizes = run_levels_impl(
-                img, labels0, collect="sizes", backend=backend, sweep_fn=self._effective_sweep_fn(img.shape),
-                device=img.device, **kw,
+                img, labels0, collect="sizes", backend=self._resolved_backend(), n_labels=n_labels,
+                max_water_level=mwl, merging=self._merging, sweep_fn=self._effective_sweep_fn(img.shape),
+                device=img.device,
             )
             sizes = _ext.host_read(sizes, "numpy")
-        return _expand_rows(sizes, counts_length, self.max_water_level, copy)
+        return _expand_rows(sizes, counts_length, mwl, copy)
 
     def _history_stack_fits(self, shape) -> bool:
         """Whether the level sweep's ``(levels, h, w)`` int32 snapshot stack
@@ -469,33 +469,18 @@ class _WatershedBase(WatershedUtils):
         memory, as in the reference (src/lib.rs:1229-1232).  The level sweep
         stacks them on the card first, unless the stack would not fit; then
         the host loop collects one plane per level."""
-        backend = self._resolved_backend()
-        compact = self.mesh is not None or backend in ("packed", "relax")
-        route_host = self._needs_host_loop() or not (
-            compact or self._history_stack_fits(np.shape(input_img))
-        )
-        if route_host:
+        compact = self._planes_serve()
+        if self._needs_host_loop() or not (compact or self._history_stack_fits(np.shape(input_img))):
             return self._clone_with_hook(
                 lambda ctx: (ctx.water_level, ctx.colours.copy())
             )._host_stepped(input_img, seeds)
         img, labels0 = self._prepare(input_img, seeds)
-        kw = dict(n_labels=len(seeds), max_water_level=self.max_water_level, merging=self._merging)
-        if self.mesh is not None:
-            # The same tiled pass as transform_to_list, every snapshot
-            # rebuilt on the host (models/base.py:814-855 of the JAX package).
-            planes = self._mesh_planes(img, labels0, n_labels=len(seeds))
-            if planes is not None:
-                return list(self._planes_history(planes, len(seeds)))
-            backend = "relax"
         if compact:
-            snaps, starved = relax_history(img, labels0, backend=backend, device=img.device, **kw)
-            if starved:
-                _warn_saturation()
-                snaps, _ = relax_history(img, labels0, backend="relax", device=img.device, **kw)
-            return snaps
+            return list(self._snapshots(img, labels0, len(seeds)))
         _, hist = run_levels_impl(
-            img, labels0, collect="history", backend=backend, sweep_fn=self._effective_sweep_fn(img.shape),
-            device=img.device, **kw,
+            img, labels0, collect="history", backend=self._resolved_backend(), n_labels=len(seeds),
+            max_water_level=self.max_water_level, merging=self._merging,
+            sweep_fn=self._effective_sweep_fn(img.shape), device=img.device,
         )
         hist = hist.cpu().numpy()
         return [(lvl, hist[lvl]) for lvl in range(self.max_water_level + 1)]
@@ -522,7 +507,8 @@ class _WatershedBase(WatershedUtils):
         Under a mesh with a ``"batch"`` dim the images split over its batch
         groups (B divisible by its size), each group's ``(y, x)`` sub-mesh
         transforms its images one after another, and every rank gets the
-        whole stack (models/base.py:477-489 of the JAX package).
+        whole stack (models/base.py:477-489 of the JAX package); a mesh
+        without one is ignored.
         """
         imgs = np.asarray(input_imgs, dtype=np.uint8)
         if imgs.ndim != 3:
@@ -538,19 +524,16 @@ class _WatershedBase(WatershedUtils):
             for i, (a, s) in enumerate(zip(imgs, seeds_list)):
                 img, labels0 = self._prepare(a, s)
                 sweep_fn = self._effective_sweep_fn(img.shape, index=i)
-                runs.append(self._run(img, labels0, n_labels=len(s), sweep_fn=sweep_fn))
+                runs.append(self._final_labels(img, labels0, n_labels=len(s), tiled=False, sweep_fn=sweep_fn))
             out = torch.stack(runs)
             return out if device_output else out.cpu().numpy()
-        if self.edge_correction:
-            imgs = np.pad(imgs, ((0, 0), (1, 1), (1, 1)), constant_values=ALWAYS_FILL)
+        imgs, labels0, coords, n_labels = self._prepare_batch(imgs, seeds_list)
         b, h, w = imgs.shape
-        coords = [seed_array(s) for s in seeds_list]
-        labels0 = np.stack([paint_seeds((h, w), c) for c in coords])
         imgs = imgs.copy()
         imgs[:, [0, -1], :] = NEVER_FILL
         imgs[:, :, [0, -1]] = NEVER_FILL
         hs = h + 1 if self._merging else h
-        kw = dict(n_labels=max((len(c) for c in coords), default=0))
+        kw = {}
         if self._merging:
             imgs = np.concatenate([imgs, np.full((b, 1, w), NEVER_FILL, np.uint8)], axis=1)
             labels0 = np.pad(labels0, ((0, 0), (0, 1), (0, 0)))
@@ -563,29 +546,24 @@ class _WatershedBase(WatershedUtils):
         dev = _ext.resolve_device(self.device)
         img = torch.from_numpy(np.ascontiguousarray(imgs.reshape(b * hs, w))).to(dev)
         lab = torch.from_numpy(np.ascontiguousarray(labels0.reshape(b * hs, w))).to(dev)
-        out = self._run(img, lab, **kw).reshape(b, hs, w)[:, :h]
+        out = self._final_labels(img, lab, n_labels=n_labels, tiled=False, **kw).reshape(b, hs, w)[:, :h]
         return out if device_output else out.cpu().numpy()
 
     def _mesh_batch(self, imgs, seeds_list):
         """``transform_batch`` over the mesh's ``"batch"`` dim
-        (``parallel.tiled._tiled_batch``); an image whose pass saturated
-        the packed key's d field is re-run on the exact engine, on every
+        (``parallel.tiled._tiled_batch``); the images whose pass saturated
+        the packed key's d field re-run on the exact engine, on every
         rank."""
         from ..parallel.tiled import _tiled_batch
 
-        if self.edge_correction:
-            imgs = np.pad(imgs, ((0, 0), (1, 1), (1, 1)), constant_values=ALWAYS_FILL)
-        shape = imgs.shape[1:]
-        labels0 = np.stack([paint_seeds(shape, seed_array(s)) for s in seeds_list])
+        imgs, labels0, _, n_labels = self._prepare_batch(imgs, seeds_list)
         dev = _ext.resolve_device(self.device)
         img_t, lab_t = torch.from_numpy(imgs).to(dev), torch.from_numpy(labels0).to(dev)
-        kw = dict(n_labels=max((len(s) for s in seeds_list), default=0), max_water_level=self.max_water_level,
-                  merging=self._merging)
+        kw = dict(n_labels=n_labels, max_water_level=self.max_water_level, merging=self._merging)
         out, starved = _tiled_batch(img_t, lab_t, self.mesh, backend="packed", **kw)
         if starved.any():
-            _warn_saturation()
-            for i in np.flatnonzero(starved):
-                out[i] = run_levels_impl(img_t[i], lab_t[i], backend="relax", device=dev, **kw)
+            redo = np.flatnonzero(starved).tolist()
+            out[redo] = self._exact_rerun(img_t[redo], lab_t[redo], **kw)
         return out
 
     # -- per-level observers: replay or the host-stepped loop ------------------
@@ -597,18 +575,18 @@ class _WatershedBase(WatershedUtils):
         (split-phase timers), per-level checkpoints (the saves are the
         recovery points) and a custom sweep interact with the stepping
         itself and run the real loop, as do the random tie-break and the
-        native backend, which resolve to the level sweep.  A mesh replays
-        from one tiled pass's planes whatever the backend but the native
-        one, as the JAX package's does (models/base.py:912)."""
+        native backend, which resolve to the level sweep.  So a mesh
+        replays from one tiled pass's planes whatever the backend but the
+        native one, as the JAX package's does (models/base.py:912), while
+        its ``transform_history`` takes the planes under ``'native'`` too
+        (``_planes_serve``)."""
         return (
             not self.debug
             and not self.progress
             and self.checkpoint_dir is None
             and self.sweep_fn is None
-            and (
-                self._resolved_backend() in ("packed", "relax")
-                or (self.mesh is not None and self.backend != "native")
-            )
+            and self._planes_serve()
+            and self.backend != "native"
         )
 
     def _seed_colours(self, seeds):
@@ -619,21 +597,7 @@ class _WatershedBase(WatershedUtils):
         time: the same HookCtx views and PNG files as the host-stepped
         loop."""
         img, labels0 = self._prepare(input_img, seeds)
-        backend = self._resolved_backend()
-        kw = dict(
-            n_labels=len(seeds), max_water_level=self.max_water_level,
-            merging=self._merging, as_iter=True, device=img.device,
-        )
-        planes = self._mesh_planes(img, labels0, n_labels=len(seeds)) if self.mesh is not None else None
-        if planes is not None:
-            snaps = self._planes_history(planes, len(seeds))
-        elif self.mesh is not None:
-            snaps, _ = relax_history(img, labels0, backend="relax", **kw)  # a saturated mesh pass
-        else:
-            snaps, starved = relax_history(img, labels0, backend=backend, **kw)
-            if starved:
-                _warn_saturation()
-                snaps, _ = relax_history(img, labels0, backend="relax", **kw)
+        snaps = self._snapshots(img, labels0, len(seeds))
         seed_colours = self._seed_colours(seeds)
         img_np = img.cpu().numpy()
         results = []

@@ -177,21 +177,37 @@ def _merge_full_depth(img, labels0, *, n_labels, steps, device, batch, batch_min
     return component_min_labels(lab, max_label=n_labels)[0], starved
 
 
-def _relax_collect(img, labels0, *, backend, max_water_level, n_labels, collect, steps, dev, checkpoint=None):
-    """The segmenting transform on a relaxation engine, with the per-level
-    statistics rebuilt from its claim levels: ``(labels, starved)`` or
-    ``((labels, stack), starved)``."""
+def relax_claims(img, labels0, *, backend, max_water_level, steps=None, device="cuda", checkpoint=None,
+                 claims: bool = True):
+    """The segmenting transform on a relaxation engine: ``(labels, claim
+    levels, starved)``.  ``'packed'`` is the packed-key engine
+    (ops/relax.py), whose claim levels are the key's high bits, formed only
+    with ``claims=True`` (None otherwise); ``'relax'`` the exact engine
+    (ops/priority.py), never starved.  ``starved`` (a host bool) is the
+    packed engine's d-field saturation flag: the planes are unreliable when
+    it is set, and the caller re-runs on ``'relax'``."""
+    dev = _ext.resolve_device(device)
     if backend == "packed":
         labels, key, starved = relax_transform_packed(
             img, labels0, max_water_level=max_water_level, steps=steps, device=dev, checkpoint=checkpoint
         )
-        claim_levels = key >> _key_consts(None)[0]
-    else:
-        labels, claim_levels = relax_transform(
-            torch.as_tensor(img).to(dev), torch.as_tensor(labels0).to(dev),
-            max_water_level=max_water_level,
+        return labels, (key >> _key_consts(None)[0] if claims else None), starved
+    if backend == "relax":
+        labels, claim = relax_transform(
+            torch.as_tensor(img).to(dev), torch.as_tensor(labels0).to(dev), max_water_level=max_water_level
         )
-        starved = False
+        return labels, claim, False
+    raise ValueError(f"unknown backend {backend!r} (packed or relax)")
+
+
+def _relax_collect(img, labels0, *, backend, max_water_level, n_labels, collect, steps, dev, checkpoint=None):
+    """The segmenting transform on a relaxation engine, with the per-level
+    statistics rebuilt from its claim levels: ``(labels, starved)`` or
+    ``((labels, stack), starved)``."""
+    labels, claim_levels, starved = relax_claims(
+        img, labels0, backend=backend, max_water_level=max_water_level, steps=steps, device=dev,
+        checkpoint=checkpoint, claims=collect != "none",
+    )
     if collect == "none":
         return labels, starved
     if n_labels is None:

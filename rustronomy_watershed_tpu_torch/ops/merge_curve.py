@@ -35,8 +35,7 @@ import torch
 from .. import _ext
 from ..parity.native import native_merged_curve
 from ..utils.tracing import spanned
-from .priority import relax_transform
-from .relax import _key_consts, relax_transform_packed
+from .level_driver import relax_claims
 from .scan_merge import component_min_labels, component_min_labels_plain
 
 
@@ -75,44 +74,41 @@ def merge_edges(seg_labels, claim_levels, *, max_water_level: int):
     return lo, hi, least, int(uniq.numel())
 
 
+def device_planes(labels, claim, *, max_water_level: int, with_edges: bool = True):
+    """The compact planes on the device from a segmenting plane and its
+    claim levels, whichever engine or mesh made them: ``(labels, lv8, (lo,
+    hi, act))``, ``lv8`` the claim levels clipped to ``max_water_level + 1``
+    (never claimed) as uint8, the merge edges of ``merge_edges`` (empty
+    with ``with_edges=False``, for segmenting)."""
+    if with_edges:
+        edges = merge_edges(labels, claim, max_water_level=max_water_level)[:3]
+    else:
+        edges = (torch.zeros((0,), dtype=torch.int32, device=labels.device),) * 3
+    return labels, claim.clamp(0, max_water_level + 1).to(torch.uint8), edges
+
+
 @spanned("rwt.api.device_curves")
 def _device_curves(
     img, labels0, *, n_labels: int, max_water_level: int, backend: str = "packed",
     steps=None, with_final: bool = True, with_edges: bool = True, device="cuda",
 ):
-    """The device half: relaxation, edges, the optional merged plane, and
-    the compact planes.  Returns ``(final, labels, lv8, (lo, hi, act),
-    starved)``: ``labels`` the segmenting plane (int32), ``lv8`` its claim
-    levels clipped to ``max_water_level + 1`` (never claimed) as uint8, and
-    ``final`` the component-min plane (``labels`` itself with
-    ``with_final=False``).  ``starved`` (a host bool) is the packed engine's
-    d-field saturation flag; the planes are unreliable when it is set."""
-    dev = _ext.resolve_device(device)
-    if backend == "packed":
-        labels, key, starved = relax_transform_packed(
-            img, labels0, max_water_level=max_water_level, steps=steps, device=dev
-        )
-        claim = key >> _key_consts(None)[0]
-    elif backend == "relax":
-        labels, claim = relax_transform(
-            torch.as_tensor(img).to(dev), torch.as_tensor(labels0).to(dev),
-            max_water_level=max_water_level,
-        )
-        starved = False
-    else:
-        raise ValueError(f"unknown backend {backend!r} (packed or relax)")
-    if with_edges:
-        lo, hi, act, _ = merge_edges(labels, claim, max_water_level=max_water_level)
-    else:
-        lo = hi = act = torch.zeros((0,), dtype=torch.int32, device=dev)
+    """The device half: relaxation, the compact planes and the optional
+    merged plane.  Returns ``(final, (labels, lv8, (lo, hi, act)),
+    starved)`` (``device_planes``): ``final`` is the component-min plane
+    (the segmenting ``labels`` with ``with_final=False``), ``starved`` (a
+    host bool) the packed engine's d-field saturation flag; the planes are
+    unreliable when it is set."""
+    labels, claim, starved = relax_claims(
+        img, labels0, backend=backend, max_water_level=max_water_level, steps=steps, device=device
+    )
+    planes = device_planes(labels, claim, max_water_level=max_water_level, with_edges=with_edges)
     final = labels
     if with_final:
         if backend == "packed":
             final = component_min_labels(labels, max_label=n_labels)[0]
         else:
             final = component_min_labels_plain(labels)
-    lv8 = claim.clamp(0, max_water_level + 1).to(torch.uint8)
-    return final, labels, lv8, (lo, hi, act), starved
+    return final, planes, starved
 
 
 @spanned("rwt.api.fetch_planes")
@@ -327,14 +323,14 @@ def relax_merging_sizes(
     ``starved``: the caller re-runs on ``'relax'``), and the saturation
     flag.  ``merging=False`` gives the segmenting curves: the cumulative
     claim counts, with no edges."""
-    final, labels, lv8, edges, starved = _device_curves(
+    final, planes, starved = _device_curves(
         img, labels0, n_labels=n_labels, max_water_level=max_water_level,
         backend=backend, steps=steps, with_final=with_final and merging,
         with_edges=merging, device=device,
     )
     if starved:
         return final, None, True
-    labels_np, lv8_np, lo, hi, act = _fetch_planes(labels, lv8, edges)
+    labels_np, lv8_np, lo, hi, act = _fetch_planes(*planes)
     sizes = merged_curve_host(
         labels_np, lv8_np, n_labels, max_water_level, lo, hi, act, out_width=out_width
     )
@@ -349,8 +345,8 @@ def iter_history_from_planes(
     ``where(claim <= level, rep_level[label], 0)``, the snapshot the level
     sweep records (segmenting labels never change once claimed; the merging
     labelling at a level is the union of the edges active at or below it).
-    Pass ``lo/hi/act`` for merging, none for segmenting.  A generator, so
-    per-level observers hold one snapshot at a time."""
+    Pass ``lo/hi/act`` for merging, none (or empty ones) for segmenting.
+    A generator, so per-level observers hold one snapshot at a time."""
     labels_np = np.asarray(labels_np).astype(np.int32, copy=False)
     lv8_np = np.asarray(lv8_np)
     levels = max_water_level + 1
@@ -383,14 +379,13 @@ def relax_history(
     rebuild.  Returns ``(snapshots, starved)``: the list of ``(level,
     snapshot)`` (a lazy generator with ``as_iter=True``), None when
     ``starved``."""
-    _, labels, lv8, edges, starved = _device_curves(
+    _, planes, starved = _device_curves(
         img, labels0, n_labels=n_labels, max_water_level=max_water_level,
         backend=backend, steps=steps, with_final=False, with_edges=merging, device=device,
     )
     if starved:
         return None, True
-    labels_np, lv8_np, lo, hi, act = _fetch_planes(labels, lv8, edges)
+    labels_np, lv8_np, lo, hi, act = _fetch_planes(*planes)
     make = iter_history_from_planes if as_iter else history_from_planes
-    if merging:
-        return make(labels_np, lv8_np, max_water_level, lo, hi, act, n_labels=n_labels), False
-    return make(labels_np, lv8_np, max_water_level), False
+    # Segmenting has no edges, and no edge gives the segmenting snapshots.
+    return make(labels_np, lv8_np, max_water_level, lo, hi, act, n_labels=n_labels), False

@@ -157,18 +157,43 @@ def _serpentine(h=41, w=38, lvl=5):
     return img
 
 
+def _entry_result(builder, entry, img, seeds):
+    """One public entry's result: ``transform_with_hook`` with a pure hook
+    (the replay of the compact planes), ``transform_batch`` of one image."""
+    if entry == "transform_with_hook":
+        return builder.set_wlvl_hook(lambda ctx: ctx.colours.copy()).build_segmenting().transform_with_hook(img, seeds)
+    ws = builder.build_segmenting()
+    if entry == "transform_batch":
+        return ws.transform_batch(img[None], [seeds])
+    return getattr(ws, entry)(img, seeds)
+
+
+@pytest.mark.parametrize("entry", ["transform", "transform_to_list", "transform_history", "transform_with_hook",
+                                   "transform_batch"])
 @pytest.mark.parametrize("seeds", [[(1, 1)], [(1, 1), (39, 5), (1, 36)]])
-def test_7bit_saturation_falls_back_to_exact_engine(monkeypatch, seeds):
-    """tests/test_saturation.py at a 7-bit d field: the public API warns and
-    re-runs on the exact engine, whose labels it then returns."""
+def test_7bit_saturation_falls_back_to_exact_engine(monkeypatch, seeds, entry):
+    """tests/test_saturation.py at a 7-bit d field: every public entry warns
+    once and re-runs on the exact engine, whose result it then returns."""
     monkeypatch.setattr(relax, "_D_BITS", 7)
     img = _serpentine()
-    ws = TransformBuilder.default().set_device("cpu").build_segmenting()
-    with pytest.warns(RuntimeWarning, match="saturation"):
-        got = ws.transform(img, seeds)
-    exact = TransformBuilder.default().set_device("cpu").set_backend("relax").build_segmenting()
-    np.testing.assert_array_equal(got, exact.transform(img, seeds))
-    assert (got[img == 5] > 0).all()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = _entry_result(TransformBuilder.default().set_device("cpu"), entry, img, seeds)
+    assert sum("saturation" in str(w.message) for w in caught) == 1
+    exact = TransformBuilder.default().set_device("cpu").set_backend("relax")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        want = _entry_result(exact, entry, img, seeds)
+    if entry in ("transform", "transform_batch"):
+        np.testing.assert_array_equal(got, want)
+        assert (got.reshape(img.shape)[img == 5] > 0).all()
+        return
+    assert len(got) == len(want) == 255
+    for g, w in zip(got, want):
+        if isinstance(g, tuple):
+            assert g[0] == w[0]
+            g, w = g[1], w[1]
+        np.testing.assert_array_equal(g, w)
 
 
 def test_no_saturation_warning_on_normal_fields():
