@@ -54,6 +54,9 @@ from pageable memory) is not counted.
 ``curve_block_reused`` and ``curve_block_new`` count the pooled-size result
 blocks of the merged-curve tail (ops/merge_curve.py ``ResultBlocks``): taken
 from the pool of released blocks, or mapped fresh.
+``seed_array_flat`` and ``seed_array_generic`` count the seed lists that
+``ops/seeds.py::seed_array`` turned into coordinates: read as one flat stream
+of pairs, or through ``np.asarray`` (an array input counts in neither).
 """
 
 from __future__ import annotations
@@ -113,6 +116,8 @@ launches = {
     "host_reads": 0,
     "curve_block_reused": 0,
     "curve_block_new": 0,
+    "seed_array_flat": 0,
+    "seed_array_generic": 0,
 }
 
 _lib = None

@@ -151,7 +151,12 @@ class WatershedUtils:
             dev = _ext.resolve_device(self.device)
             mask = local_extrema_mask(torch.as_tensor(img).to(dev), mode)
             with span("rwt.api.seed_list"):
-                return list(map(tuple, _ext.host_read(torch.nonzero(mask))))
+                # One read of the (2, n) columns.  A coordinate's int is made
+                # once and shared by every seed on its row or column (a gather
+                # from an object array), so only the tuples are made one by one.
+                ys, xs = _ext.host_read(torch.nonzero(mask).t(), to="numpy")
+                ints = np.array(range(max(mask.shape)), dtype=object)
+                return list(zip(ints.take(ys).tolist(), ints.take(xs).tolist()))
 
 
 class _WatershedBase(WatershedUtils):

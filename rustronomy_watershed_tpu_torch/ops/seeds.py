@@ -13,10 +13,17 @@ version's MXU prefix needed ``Precision.HIGHEST``, PARITY.md hazard log).
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
+from .. import _ext
 from .stencil import interior_mask, shift8
+
+# Entry types whose iteration is the (y, x) pair that np.asarray reads from
+# them; a str, bytes or dict of length 2 iterates otherwise.
+_PAIR_TYPES = frozenset((tuple, list))
 
 
 def local_extrema_mask(img: torch.Tensor, mode: str = "reference") -> torch.Tensor:
@@ -46,9 +53,24 @@ def seed_labels_from_mask(mask: torch.Tensor) -> torch.Tensor:
 
 
 def seed_array(seeds) -> np.ndarray:
-    """``(n, 2)`` int64 coordinates from a (y, x) list or array."""
+    """``(n, 2)`` int64 coordinates from a (y, x) list or array.
+
+    A non-empty sequence of tuples or lists of two, such as
+    ``find_local_minima``'s list, is read as one flat stream of coordinates
+    (counted in ``_ext.launches["seed_array_flat"]``); any other sequence,
+    and one the flat read refuses, goes through ``np.asarray``
+    (``seed_array_generic``), which gives the same array for such pairs."""
     if not isinstance(seeds, np.ndarray):
         seeds = list(seeds)
+        if seeds and set(map(type, seeds)) <= _PAIR_TYPES and set(map(len, seeds)) == {2}:
+            try:
+                flat = np.fromiter(itertools.chain.from_iterable(seeds), np.int64, count=2 * len(seeds))
+            except (TypeError, ValueError, OverflowError):
+                pass  # e.g. a nested pair, None or NaN: np.asarray reads or refuses it
+            else:
+                _ext.launches["seed_array_flat"] += 1
+                return flat.reshape(-1, 2)
+        _ext.launches["seed_array_generic"] += 1
     return np.asarray(seeds, dtype=np.int64).reshape(-1, 2)
 
 
