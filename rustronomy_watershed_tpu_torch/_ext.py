@@ -36,7 +36,10 @@ fixed point's launches skipped, as the host reads them with the flags;
 ``relax_px_run`` the pixels of the centre tiles that each relax launch ran,
 clipped to the plane (a skipped tile adds 0; read with the flags too, or
 ``h * w`` at the launch of a call without tile state), and
-``relax_sweeps`` each relax launch's ``steps``.
+``relax_sweeps`` each relax launch's ``steps``, and ``relax_calls_sparse``
+the launches of a skipping fixed point that ran fewer than an eighth of
+their plan's tiles (a front of the flood, not the plane; counted from the
+same read).
 ``coarse_round_launched`` counts every launch of the coarse round, as it
 is queued, and ``coarse_round_ring`` / ``coarse_round_chunked`` its row
 route; ``coarse_round`` counts the rounds that ran, ``coarse_round_skipped``
@@ -57,6 +60,8 @@ from the pool of released blocks, or mapped fresh.
 ``seed_array_flat`` and ``seed_array_generic`` count the seed lists that
 ``ops/seeds.py::seed_array`` turned into coordinates: read as one flat stream
 of pairs, or through ``np.asarray`` (an array input counts in neither).
+``pre_process_px`` counts the pixels that ``ops/preprocess.py::
+pre_process_jnp`` quantised.
 """
 
 from __future__ import annotations
@@ -111,6 +116,7 @@ launches = {
     "relax_tiles_skipped": 0,
     "relax_px_run": 0,
     "relax_sweeps": 0,
+    "relax_calls_sparse": 0,
     "coarse_round_launched": 0,
     "coarse_round_skipped": 0,
     "host_reads": 0,
@@ -118,6 +124,7 @@ launches = {
     "curve_block_new": 0,
     "seed_array_flat": 0,
     "seed_array_generic": 0,
+    "pre_process_px": 0,
 }
 
 _lib = None

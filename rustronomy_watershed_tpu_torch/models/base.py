@@ -380,6 +380,7 @@ class _WatershedBase(WatershedUtils):
             merging=self._merging, edge_correction=self.edge_correction, **kw,
         )
 
+    @spanned("rwt.api.transform")
     def transform(self, input_img, seeds, device_output: bool = False):
         """Final label image (host numpy int32, or the device tensor with
         ``device_output=True``).  With a hook, plots, progress, debug or

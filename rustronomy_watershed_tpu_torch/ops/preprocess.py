@@ -27,6 +27,7 @@ import torch
 
 from .. import _ext
 from ..constants import ALWAYS_FILL, NEVER_FILL, NORMAL_MAX
+from ..utils.tracing import spanned
 
 _F64_MIN_NORMAL = np.finfo(np.float64).tiny
 _F32_MIN_NORMAL = float(np.finfo(np.float32).tiny)
@@ -58,6 +59,7 @@ def pre_process(img, max_val: int = NORMAL_MAX) -> np.ndarray:
     return out
 
 
+@spanned("rwt.pre_process")
 def pre_process_jnp(img, max_val: int = NORMAL_MAX, device="cuda") -> torch.Tensor:
     """Device variant (float32 internals): ``img`` a tensor, or an
     array-like taken as ``torch.as_tensor`` takes it, moved to ``device``
@@ -67,8 +69,10 @@ def pre_process_jnp(img, max_val: int = NORMAL_MAX, device="cuda") -> torch.Tens
     with 0, float32 ``tiny`` as the subnormal cutoff, ``trunc((fin - mn) /
     denom * max_val)``, then NEVER_FILL and ALWAYS_FILL.  ``denom`` stays a
     tensor on the device: CUDA divides by a host scalar as a multiply by its
-    reciprocal, which rounds differently from the division."""
+    reciprocal, which rounds differently from the division.  Counts the
+    pixels in ``_ext.launches["pre_process_px"]``."""
     x = torch.as_tensor(img).to(_ext.resolve_device(device), torch.float32)
+    _ext.launches["pre_process_px"] += x.numel()
     finite = torch.isfinite(x)
     fin = torch.where(finite, x, 0.0)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -214,11 +214,15 @@ class _Tiles:
 
     def count(self, words: list):
         """``(flags, skipped)`` of the host's read of ``buf`` (a list);
-        adds the skipped tiles to ``relax_tiles_skipped`` and the pixels
-        run to ``relax_px_run``."""
+        adds the skipped tiles to ``relax_tiles_skipped``, the pixels run
+        to ``relax_px_run``, and the call to ``relax_calls_sparse`` when
+        the tiles it ran are fewer than an eighth of the plan's."""
         skipped, lo, hi = words[self.n_flags:]
         _ext.launches["relax_tiles_skipped"] += skipped
         _ext.launches["relax_px_run"] += (hi << 32) | (lo & 0xFFFFFFFF)
+        n = self.plan["n_tiles"]
+        if 8 * (n - skipped) < n:
+            _ext.launches["relax_calls_sparse"] += 1
         return words[: self.n_flags], skipped
 
     def next_call(self):

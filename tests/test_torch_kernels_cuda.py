@@ -686,6 +686,46 @@ def test_relax_sweeps_count_each_launch_steps(cuda):
     assert n["relax"] >= 2 and n["relax_sweeps"] == n["relax"] * relax.DEFAULT_STEPS
 
 
+def test_relax_calls_sparse_equals_a_recount_from_the_tile_flags(cuda):
+    """On a beam-smoothed map quantised on the card (the long fixed point of
+    plateaus), ``relax_calls_sparse`` counts the calls whose running
+    tiles, recounted from the previous call's tile flags by
+    ``quiet_tiles``, are fewer than an eighth of the plan's; the whole
+    fixed point and the segmenting e2e count the same on the same map."""
+    from rustronomy_watershed_tpu_torch.ops.preprocess import pre_process_jnp
+    from rustronomy_watershed_tpu_torch.utils.fields import gaussian_random_field, smooth
+
+    h = w = 1024
+    u8 = pre_process_jnp(smooth(gaussian_random_field((h, w), power=-3.0, seed=3), 3.3).astype(np.float32), 254,
+                         device=cuda)
+    v, key, lab, _ = pack.pack_kernel(u8)
+    plan = relax.relax_plan(h, w, relax.DEFAULT_STEPS)
+    gy, gx = plan["grid"]
+    tiles = relax._Tiles(plan, 3, cuda)
+    src, dst = (key.clone(), lab.clone()), (torch.empty_like(key), torch.empty_like(lab))
+    _ext.reset_launches()
+    n, sparse = _ext.launches, 0
+    while True:
+        run = plan["n_tiles"]
+        if tiles.calls:
+            run = int((~relax.quiet_tiles(tiles.chg[(tiles.calls + 1) % 2].view(gy, gx))).sum())
+        k2, l2, _ = relax.relax_block(v, *src, relax.DEFAULT_STEPS, out=dst, tiles=tiles)
+        f, skipped = tiles.count(tiles.buf.tolist())
+        assert skipped == plan["n_tiles"] - run
+        sparse += 8 * run < plan["n_tiles"]
+        assert n["relax_calls_sparse"] == sparse
+        src, dst = (k2, l2), src
+        if not f[relax.LAST]:
+            break
+    assert n["relax"] >= 40 and 0 < sparse < n["relax"]
+    _ext.reset_launches()
+    relax.relax_fixed_point(v, key.clone(), lab.clone())
+    assert (n["relax"], n["relax_calls_sparse"]) == (tiles.calls, sparse)
+    _ext.reset_launches()
+    watershed_e2e(u8, device=cuda)
+    assert (n["relax"], n["relax_calls_sparse"], n["pre_process_px"]) == (tiles.calls, sparse, 0)
+
+
 def _rects(h, w):
     """The whole plane, the mesh's inner rectangle, one that cuts the
     kernel's tiles off-centre, a one-row and a one-cell rectangle."""
