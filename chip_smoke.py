@@ -161,10 +161,11 @@ def start_morph_references() -> dict:
 
 # Device kernels of the traced transforms (phase 24), by a part of their
 # demangled names, and the launches of each per count of its launch counter
-# (a coarse round that stopped on the device launched its kernels too).
+# (a coarse round or a relax call that stopped on the device launched its
+# kernels too).
 TRACED_KERNELS = {
     "pack": ("pack_bands", "pack", 1),
-    "relax": ("relax_kernel", "relax", 1),
+    "relax": ("relax_kernel", "relax_launched", 1),
     "coarsen": ("coarsen_strips", "coarsen", 1),
     "coarse round column scans": ("vscan_tiles<true,", "coarse_round_launched", 2),
     "coarse round row kernel": ("row_ring<true>", "coarse_round_launched", 1),
@@ -1116,12 +1117,18 @@ def main() -> int:
     check(torch.equal(e2e, want), "e2e labels == exact engine")
     check(int(e2e.max()) == len(seeds) and int(e2e[0].abs().max()) == 0, "e2e labels in range, border uncoloured")
     print(f"[6 e2e] {SIDE}^2 watershed_e2e equals the exact engine ({len(seeds)} seeds); launches {launches}")
-    check(launches["relax_sweeps"] == launches["relax"] * relax.DEFAULT_STEPS, "relax_sweeps = launches x steps")
+    check(launches["relax_sweeps"] == launches["relax"] * relax.DEFAULT_STEPS, "relax_sweeps = calls that ran x steps")
     check(SIDE * SIDE <= launches["relax_px_run"] <= launches["relax"] * SIDE * SIDE,
           "relax_px_run: the first launch's plane, at most every launch's")
+    k = relax._RELAX_BLOCK
+    check(launches["relax_launched"] == launches["relax"] + launches["relax_stopped"]
+          and k <= launches["relax_stopped"] <= 2 * k - 1 and launches["relax_reads"] == -(-launches["relax"] // k),
+          f"relax calls in blocks of {k}: launched = ran + stopped, {k} to {2 * k - 1} stopped on the card, "
+          "one flag read a block")
     print(f"[6 e2e] relax over every launch: relax_px_run {launches['relax_px_run']} "
-          f"({launches['relax_px_run'] / (SIDE * SIDE):.4f} planes in {launches['relax']} launches), "
-          f"relax_sweeps {launches['relax_sweeps']}")
+          f"({launches['relax_px_run'] / (SIDE * SIDE):.4f} planes in {launches['relax']} calls that ran), "
+          f"relax_sweeps {launches['relax_sweeps']}; {launches['relax_launched']} launches, "
+          f"{launches['relax_stopped']} stopped on the card")
     seg_exact = want
 
     # -- 7: times on the card --------------------------------------------------
@@ -2151,7 +2158,8 @@ def main() -> int:
     dot_counts = merge_runs["10% dots"]
     rows = [
         ("pack", "csrc/pack.cu", "rustronomy_watershed_tpu/ops/pallas_pack.py:85", launches["pack"], pack_err, pack_ms, pack_plain_ms),
-        ("relax", "csrc/relax.cu", "rustronomy_watershed_tpu/ops/pallas_relax.py:254", launches["relax"], relax_err, relax_ms, relax_plain_ms),
+        ("relax", "csrc/relax.cu", "rustronomy_watershed_tpu/ops/pallas_relax.py:254", launches["relax_launched"], relax_err,
+         relax_ms, relax_plain_ms),
         ("coarsen", "csrc/coarsen.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:687", dot_counts["coarsen"],
          coarse_err["coarsen"], coarsen_ms, coarsen_plain_ms),
         ("coarse_round", "csrc/scan_round.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:1001",
@@ -2163,7 +2171,7 @@ def main() -> int:
          level_runs[(f"uniform {SIDE}^2", "segmenting")]["flood"] + mesh["flood_launches"],
          max(flood_err, mesh["flood_err"]), flood_ms, flood_plain_ms),
         ("relax2d", "csrc/relax.cu", "rustronomy_watershed_tpu/ops/pallas_relax.py:920",
-         big_runs[("10% dots", "merging")]["relax"], relax2d_err, *big_ms["relax2d"]),
+         big_runs[("10% dots", "merging")]["relax_launched"], relax2d_err, *big_ms["relax2d"]),
         ("fwd_v", "csrc/scan_round.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:129",
          big_runs[("10% dots", "merging")]["fwd_v"], fine_err["fwd_v"], *big_ms["fwd_v"]),
         ("bwd_vh", "csrc/scan_round.cu", "rustronomy_watershed_tpu/ops/scan_merge.py:212",

@@ -40,6 +40,15 @@ clipped to the plane (a skipped tile adds 0; read with the flags too, or
 the launches of a skipping fixed point that ran fewer than an eighth of
 their plan's tiles (a front of the flood, not the plane; counted from the
 same read).
+``relax_launched`` counts every relax launch as it is queued; ``relax``
+(with ``relax_tiles``, ``relax_sweeps``, ``relax_ctr`` and, without tile
+state, ``relax_px_run``) the launches that ran, and ``relax_stopped`` those
+that a fixed point queued past its end and that stopped on the device,
+because the call before them certified it (ops/relax.py
+``relax_fixed_point``, which counts both once it has read a block of
+flags): the two add up to ``relax_launched``.  The twin counts its calls
+that stopped in ``relax_stopped`` too.  ``relax_reads`` counts the fixed
+point's reads of its flags, one a block (also in ``host_reads``).
 ``coarse_round_launched`` counts every launch of the coarse round, as it
 is queued, and ``coarse_round_ring`` / ``coarse_round_chunked`` its row
 route; ``coarse_round`` counts the rounds that ran, ``coarse_round_skipped``
@@ -48,8 +57,8 @@ before them changed nothing (ops/scan_merge.py ``_coarse_rounds``, which
 counts both once it has read a block's change counts): the two add up to
 ``coarse_round_launched``.
 ``host_reads`` counts the program's explicit blocking reads of a result on
-the transforms' paths, each made through ``host_read``: a relax call's
-flags, a block of coarse rounds' change counts, a legacy or fine tail
+the transforms' paths, each made through ``host_read``: a block of relax
+calls' flags, a block of coarse rounds' change counts, a legacy or fine tail
 round's flag, the seed list, the compact planes of
 ``transform_to_list`` and the labels or sizes a public call returns.  A sync
 inside a torch op (``nonzero``, boolean-mask indexing, ``unique``, a copy
@@ -117,6 +126,9 @@ launches = {
     "relax_px_run": 0,
     "relax_sweeps": 0,
     "relax_calls_sparse": 0,
+    "relax_launched": 0,
+    "relax_stopped": 0,
+    "relax_reads": 0,
     "coarse_round_launched": 0,
     "coarse_round_skipped": 0,
     "host_reads": 0,
@@ -238,7 +250,7 @@ def lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         L.rwt_pack.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         L.rwt_pack.restype = I
-        L.rwt_relax.argtypes = [P] * 12 + [I] * 14 + [P]
+        L.rwt_relax.argtypes = [P] * 13 + [I] * 14 + [P]
         L.rwt_relax.restype = I
         L.rwt_coarsen.argtypes = [P, P, I, I, I, I, I, I, I, P]
         L.rwt_coarsen.restype = I

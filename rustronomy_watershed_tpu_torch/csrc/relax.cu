@@ -97,7 +97,14 @@
 //     runs, kept when it is skipped), reduced over all tiles by a second
 //     one-block launch.  `stats` is a template parameter: the segmenting
 //     instantiation holds no statistics code, and the merging one no y0
-//     code (`kScan`: 4 B a cell more out, the labels already in registers).
+//     code (`kScan`: 4 B a cell more out, the labels already in registers);
+//   * a stop on the card: the fixed point queues its calls in blocks
+//     (ops/relax.py relax_fixed_point) and gives each call after the first
+//     the previous call's changed_last word as `go`; every block of both
+//     launches reads it first and returns at once when it holds 0 (that
+//     call certified the fixed point), so a call queued past the fixed
+//     point writes no plane, tile flag or partial, and its flags, zeroed
+//     by the launch's memset, read as quiet.
 // The strip depth and the warps per block come from the launch plan in
 // ops/relax.py (relax_plan): strips of 8 rows in 16 warps, a 128 x 128
 // window, 112 x 112 centre tiles at 8 steps.  On an H100 strips of 4 rows
@@ -237,8 +244,9 @@ relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
              int32_t* __restrict__ lab_out, int32_t* __restrict__ flags,
              const int32_t* __restrict__ chg_prev, int32_t* __restrict__ chg,
              int32_t* __restrict__ part, int32_t* __restrict__ y0_out, unsigned long long* status,
-             int h, int w, int steps, int d_bits, int tile_y, int tile_x, int4 rect, int vec) {
+             const int32_t* go, int h, int w, int steps, int d_bits, int tile_y, int tile_x, int4 rect, int vec) {
   static_assert(!kScan || (kStats && !kRect), "the y0 epilogue runs with the statistics on the whole plane");
+  if (go != nullptr && *go == 0) return;  // the call before this one certified the fixed point
   extern __shared__ int4 xrow[];
   __shared__ int s_red[2];  // with stats: unclaimed interior cells, least claimed interior label
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
@@ -492,11 +500,13 @@ relax_kernel(const uint8_t* __restrict__ v, const int32_t* __restrict__ key_in,
 // `stats`).  `skipped` (may be null) gets three words: the number of tiles
 // whose chg entry is 2, then the pixels of the other tiles' centres
 // (tile_y x tile_x clipped to the h x w plane; tile t of a `gx`-wide grid
-// at row t / gx) as a 64-bit count, low word first.
+// at row t / gx) as a 64-bit count, low word first.  With `go` (may be
+// null) holding 0 it returns at once, as relax_kernel does.
 __global__ void __launch_bounds__(1024)
 relax_reduce(const int32_t* __restrict__ chg, const int4* __restrict__ part, int n_tiles,
              int32_t* __restrict__ flags, int stats, int32_t* skipped, int h, int w, int tile_y, int tile_x,
-             int gx) {
+             int gx, const int32_t* go) {
+  if (go != nullptr && *go == 0) return;
   __shared__ int s_red[5];
   __shared__ unsigned long long s_px;
   if (threadIdx.x == 0) {
@@ -555,8 +565,8 @@ relax_reduce(const int32_t* __restrict__ chg, const int4* __restrict__ part, int
 template <bool kStats, bool kRect, bool kScan>
 cudaError_t launch(const dim3& grid, int threads, size_t smem, cudaStream_t st, const void* v, const void* key_in,
                    const void* lab_in, void* key_out, void* lab_out, void* flags, const void* chg_prev, void* chg,
-                   void* part, void* y0, void* status, int h, int w, int steps, int d_bits, int tile_y, int tile_x,
-                   int4 rect, int vec) {
+                   void* part, void* y0, void* status, const void* go, int h, int w, int steps, int d_bits,
+                   int tile_y, int tile_x, int4 rect, int vec) {
   auto kernel = relax_kernel<kStats, kRect, kScan>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -564,8 +574,8 @@ cudaError_t launch(const dim3& grid, int threads, size_t smem, cudaStream_t st, 
       static_cast<const uint8_t*>(v), static_cast<const int32_t*>(key_in), static_cast<const int32_t*>(lab_in),
       static_cast<int32_t*>(key_out), static_cast<int32_t*>(lab_out), static_cast<int32_t*>(flags),
       static_cast<const int32_t*>(chg_prev), static_cast<int32_t*>(chg), static_cast<int32_t*>(part),
-      static_cast<int32_t*>(y0), static_cast<unsigned long long*>(status), h, w, steps, d_bits, tile_y, tile_x, rect,
-      vec);
+      static_cast<int32_t*>(y0), static_cast<unsigned long long*>(status), static_cast<const int32_t*>(go), h, w,
+      steps, d_bits, tile_y, tile_x, rect, vec);
   return cudaGetLastError();
 }
 
@@ -590,14 +600,17 @@ cudaError_t launch(const dim3& grid, int threads, size_t smem, cudaStream_t st, 
 // combined with `stats`.  y0 (may be null): the y0 epilogue's (h, w) int32
 // plane, written here; it needs `stats`, the whole plane as the centre, no
 // chg_prev (every tile runs) and `scan_status`, the look-back's
-// 1 + ceil(h / tile_y) * w uint64 words (zeroed here).  vec: w % 4 == 0 and
-// the planes 16-byte (v 4-byte) aligned.  Launches on `stream`, does not
-// synchronise, returns cudaGetLastError() (nonzero when a launch was
+// 1 + ceil(h / tile_y) * w uint64 words (zeroed here).  go (may be null):
+// one int32, the previous call's changed_last; when it holds 0 both
+// launches return at once, so the planes, chg, part and `skipped` stay as
+// they were and the flags read 0 (null: the call runs).  vec: w % 4 == 0
+// and the planes 16-byte (v 4-byte) aligned.  Launches on `stream`, does
+// not synchronise, returns cudaGetLastError() (nonzero when a launch was
 // refused).
 extern "C" int rwt_relax(const void* v, const void* key_in, const void* lab_in, void* key_out, void* lab_out,
                          void* flags, const void* chg_prev, void* chg, void* part, void* skipped, void* y0,
-                         void* scan_status, int h, int w, int steps, int d_bits, int rows, int warps, int tile_y,
-                         int tile_x, int ctr_y0, int ctr_y1, int ctr_x0, int ctr_x1, int stats, int vec,
+                         void* scan_status, const void* go, int h, int w, int steps, int d_bits, int rows, int warps,
+                         int tile_y, int tile_x, int ctr_y0, int ctr_y1, int ctr_x0, int ctr_x1, int stats, int vec,
                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool rect = ctr_y0 > 0 || ctr_y1 < h || ctr_x0 > 0 || ctr_x1 < w;
@@ -620,19 +633,19 @@ extern "C" int rwt_relax(const void* v, const void* key_in, const void* lab_in, 
   const int4 r = make_int4(ctr_y0, ctr_y1, ctr_x0, ctr_x1);
   if (scan)
     e = launch<true, false, true>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg,
-                                  part, y0, scan_status, h, w, steps, d_bits, tile_y, tile_x, r, vec);
+                                  part, y0, scan_status, go, h, w, steps, d_bits, tile_y, tile_x, r, vec);
   else if (stats)
     e = launch<true, false, false>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg,
-                                   part, y0, scan_status, h, w, steps, d_bits, tile_y, tile_x, r, vec);
+                                   part, y0, scan_status, go, h, w, steps, d_bits, tile_y, tile_x, r, vec);
   else if (rect)
     e = launch<false, true, false>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev, chg,
-                                   part, y0, scan_status, h, w, steps, d_bits, tile_y, tile_x, r, vec);
+                                   part, y0, scan_status, go, h, w, steps, d_bits, tile_y, tile_x, r, vec);
   else
     e = launch<false, false, false>(grid, threads, smem, st, v, key_in, lab_in, key_out, lab_out, flags, chg_prev,
-                                    chg, part, y0, scan_status, h, w, steps, d_bits, tile_y, tile_x, r, vec);
+                                    chg, part, y0, scan_status, go, h, w, steps, d_bits, tile_y, tile_x, r, vec);
   if (e != cudaSuccess) return static_cast<int>(e);
   relax_reduce<<<1, 1024, 0, st>>>(static_cast<const int32_t*>(chg), static_cast<const int4*>(part), n_tiles,
                                    static_cast<int32_t*>(flags), stats, static_cast<int32_t*>(skipped), h, w, tile_y,
-                                   tile_x, static_cast<int>(grid.x));
+                                   tile_x, static_cast<int>(grid.x), static_cast<const int32_t*>(go));
   return static_cast<int>(cudaGetLastError());
 }

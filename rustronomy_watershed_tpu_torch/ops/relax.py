@@ -21,7 +21,8 @@ the labels may not.
 
 Layers: ``relax_block`` (one call = exactly ``steps`` global Jacobi sweeps,
 csrc/relax.cu on CUDA tensors, ``relax_block_plain`` on CPU tensors) ->
-``relax_fixed_point`` (host loop until a call's last sweep changed nothing;
+``relax_fixed_point`` (host loop until a call's last sweep changed nothing,
+its calls queued in blocks and stopped on the card past the fixed point;
 on the card the calls after the first skip quiet tiles)
 -> ``relax_packed_planes`` / ``relax_transform_packed`` (pack + fixed point
 + the ``max_water_level`` mask).
@@ -53,6 +54,8 @@ counterpart of ``relax_fixed_point_fused``).
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from .. import _ext
@@ -67,6 +70,9 @@ ANY, LAST, SAT = 0, 1, 2  # indices into a call's flags tensor
 N_UNCL, ANY_BORDER, GMIN = 3, 4, 5  # ... and its statistics (stats=True)
 
 _BIG_LAB = 2**30
+# Calls the fixed point queues a block (module constant; the fastest of 1..8
+# on the H100 on the uniform tile and the beam map, PERF.md).
+_RELAX_BLOCK = 4
 # The window kernels' launch plan (csrc/relax.cu, csrc/flood.cu): a block is
 # one warp of 4-column strips wide (a 128-column window) and _WARPS warps
 # deep, each thread holding _STRIP_ROWS rows of its strip in registers;
@@ -163,12 +169,28 @@ def _scan_args(stats: bool, ctr, fwd_scan: bool) -> bool:
     return stats or fwd_scan
 
 
-def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, ctr=None, fwd_scan=False):
+def _check_go(go, key, out, fwd_scan):
+    if go.shape != (1,) or go.dtype != torch.int32 or go.device != key.device:
+        raise ValueError("a relax call's go is a one-element int32 tensor on the planes' device")
+    if out is None or fwd_scan:
+        raise ValueError("a relax call with go writes into out, and is not the y0 call")
+
+
+def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, ctr=None, fwd_scan=False,
+                      go=None):
     """Plain PyTorch twin of the relax kernel: ``steps`` Jacobi sweeps.
     Returns ``(key', lab', flags)``, and ``y0`` after them with
-    ``fwd_scan=True``: ``fwd_v`` of ``lab'``, exact for every call."""
-    _ext.launches["relax_plain"] += 1
+    ``fwd_scan=True``: ``fwd_v`` of ``lab'``, exact for every call.
+    ``go``: the previous call's LAST flag; when it holds 0 the call stops
+    at once, as the kernel's does: it writes nothing into ``out``, returns
+    ``out`` with zero flags and is counted as ``relax_stopped``."""
     stats = _scan_args(stats, ctr, fwd_scan)
+    if go is not None:
+        _check_go(go, key, out, fwd_scan)
+        if not go.item():
+            _ext.launches["relax_stopped"] += 1
+            return out[0], out[1], torch.zeros((6 if stats else 3,), dtype=torch.int32, device=key.device)
+    _ext.launches["relax_plain"] += 1
     d_bits, d_mask, unclaimed = _key_consts(d_bits)
     y0, y1, x0, x1 = _rect(ctr, *key.shape, stats)
     vcand = torch.clamp_max((v.to(torch.int32) << d_bits) + 1, unclaimed)
@@ -199,18 +221,20 @@ def relax_block_plain(v, key, lab, steps: int, d_bits=None, *, out=None, stats=F
 
 
 class _Tiles:
-    """Tile state of a skipping fixed point on the card: the per-tile change
-    flags of the last two calls (ping-pong), the per-tile partials of the
-    saturation bit and the statistics, and one flag buffer per call with
-    three words after the flags: the count of skipped tiles, then the
-    pixels of the centre tiles that ran (clipped to the plane) as a 64-bit
-    count, low word first."""
+    """Tile state of a skipping loop of relax calls on the card: the
+    per-tile change flags of the last two calls (ping-pong), the per-tile
+    partials of the saturation bit and the statistics, and a flag buffer
+    for calls made one at a time (``relax_block(tiles=)``; the fixed point
+    has a slot a call of its block) with three words after the flags: the
+    count of skipped tiles, then the pixels of the centre tiles that ran
+    (clipped to the plane) as a 64-bit count, low word first."""
 
     def __init__(self, plan: dict, n_flags: int, device):
         self.plan, self.n_flags, self.calls = plan, n_flags, 0
         self.chg = torch.zeros((2, plan["n_tiles"]), dtype=torch.int32, device=device)
         self.part = torch.empty((plan["n_tiles"], 4), dtype=torch.int32, device=device)
         self.buf = torch.empty((n_flags + 3,), dtype=torch.int32, device=device)
+        self._chg_ptrs = (self.chg[0].data_ptr(), self.chg[1].data_ptr())
 
     def count(self, words: list):
         """``(flags, skipped)`` of the host's read of ``buf`` (a list);
@@ -226,34 +250,19 @@ class _Tiles:
         return words[: self.n_flags], skipped
 
     def next_call(self):
-        """``(chg_prev or None, chg)`` for the next call: skipping needs the
-        previous call's flags and a plan whose tiles hold a call's cone."""
+        """The data pointers ``(chg_prev or None, chg)`` of the next call's
+        tile flags: skipping needs the previous call's flags and a plan
+        whose tiles hold a call's cone."""
         k, self.calls = self.calls, self.calls + 1
-        prev = self.chg[(k + 1) % 2] if k > 0 and self.plan["skip"] else None
-        return prev, self.chg[k % 2]
+        prev = self._chg_ptrs[(k + 1) % 2] if k > 0 and self.plan["skip"] else None
+        return prev, self._chg_ptrs[k % 2]
 
 
-def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, tiles=None, ctr=None,
-                       fwd_scan=False):
-    """Launch csrc/relax.cu: ``steps`` Jacobi sweeps of CUDA planes into
-    ``out`` (fresh planes when None; never the input planes).  ``tiles``
-    (relax_fixed_point's state) lets the call skip the tiles that the
-    previous call left quiet, and counts them, and the pixels of the tiles
-    that ran, after the flags in ``tiles.buf`` (``_Tiles.count``); a call
-    without it runs every pixel, counted here in ``relax_px_run``.
-    ``ctr`` limits the flags to a centre rectangle.
-    ``fwd_scan=True`` runs the y0 epilogue (counted as ``relax_y0``) and
-    returns ``y0`` after the flags; it raises on a call that may skip tiles
-    (one with a previous call in ``tiles``)."""
-    stats = _scan_args(stats, ctr, fwd_scan)
-    d_bits, _, _ = _key_consts(d_bits)
-    h, w = key.shape
-    rect = _rect(ctr, h, w, stats)
+def _check_kernel_planes(v, key, lab, key_out, lab_out, steps: int):
     if v.dtype != torch.uint8 or key.dtype != torch.int32 or lab.dtype != torch.int32:
         raise ValueError("relax kernel takes uint8 v and int32 key/lab planes")
     if v.shape != key.shape or lab.shape != key.shape or key.dim() != 2:
         raise ValueError("relax kernel planes must share one 2-D shape")
-    key_out, lab_out = out if out is not None else (torch.empty_like(key), torch.empty_like(lab))
     planes = (v, key, lab, key_out, lab_out)
     if not key.is_cuda or not all(t.is_contiguous() and t.device == key.device for t in planes):
         raise ValueError("relax kernel planes must be contiguous on one CUDA device")
@@ -263,45 +272,134 @@ def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=
         raise ValueError("relax kernel output planes must not alias its inputs")
     if steps < 1:
         raise ValueError("steps must be >= 1")
-    n_flags = 6 if stats else 3
-    if tiles is None:
+
+
+class _PlainRelaxLauncher:
+    """The relax twin's launcher for a loop of calls on the ping-pong pair
+    ``planes`` = ``((key, lab), (key, lab))`` with ``words``, int32 flag
+    slots, one row a call (the flags, then with tile state the three words
+    of ``_Tiles.count``).
+
+    ``launcher(c, i, g)`` runs call ``c`` from ``planes[c % 2]`` into
+    ``planes[(c + 1) % 2]``, its flags into ``words[i]``; with ``g`` not
+    None it reads ``words[g][LAST]`` first and stops at once when that holds
+    0: the planes stay and ``words[i]``'s flags read 0.  With ``fwd_scan``
+    call 0 runs the y0 epilogue into ``y0``.  ``count(row)`` is ``(flags,
+    skipped)`` of a read slot; ``settle(ran, stopped)``, called once the
+    slots are read, counts the calls that ran and those that stopped (here
+    each ``relax_block_plain`` call has counted itself)."""
+
+    tiles = None
+
+    def __init__(self, v, planes, steps: int, d_bits: int, *, stats: bool, ctr, words, fwd_scan=False):
+        self.v, self.planes, self.steps, self.d_bits = v, planes, steps, d_bits
+        self.stats, self.ctr, self.words, self.fwd_scan = stats, ctr, words, fwd_scan
+        self.n_flags, self.y0 = (6 if stats else 3), None
+
+    def __call__(self, c: int, i: int, g=None):
+        go = None if g is None else self.words[g, LAST : LAST + 1]
+        _, _, flags, *y0 = relax_block_plain(self.v, *self.planes[c % 2], self.steps, self.d_bits,
+                                             out=self.planes[1 - c % 2], stats=self.stats, ctr=self.ctr,
+                                             fwd_scan=self.fwd_scan and c == 0, go=go)
+        self.words[i, : self.n_flags] = flags
+        if y0:
+            self.y0 = y0[0]
+
+    def count(self, row):
+        return (row[: self.n_flags], 0) if self.tiles is None else self.tiles.count(row)
+
+    def settle(self, ran: int, stopped: int):
+        pass
+
+
+class _RelaxLauncher(_PlainRelaxLauncher):
+    """The relax kernel's launcher, its planes checked and its plan,
+    pointers and arguments made once, so that the host queues a call in a
+    few microseconds.  A call with ``g`` reads its ``go`` word on the
+    device; a stopped call leaves the planes, ``tiles``' flags and partials
+    as they were.  ``tiles`` (a skipping loop's state) lets the calls after
+    its first skip quiet tiles, and a call that may skip tiles refuses the
+    y0 epilogue.  Each launch is counted as it is queued, as
+    ``relax_launched`` (with ``relax_y0``); ``settle`` counts the calls that
+    ran as ``relax``, with their plan's tiles in ``relax_tiles``, their
+    sweeps in ``relax_sweeps``, without tile state the plane's pixels in
+    ``relax_px_run`` and, with a centre rectangle, ``relax_ctr``; and those
+    that stopped as ``relax_stopped``."""
+
+    def __init__(self, v, planes, steps: int, d_bits: int, *, stats: bool, ctr, words, tiles=None, fwd_scan=False):
+        super().__init__(v, planes, steps, d_bits, stats=stats, ctr=ctr, words=words, fwd_scan=fwd_scan)
+        (key, lab), (key_out, lab_out) = planes
+        h, w = key.shape
+        rect = _rect(ctr, h, w, stats)
+        _check_kernel_planes(v, key, lab, key_out, lab_out, steps)
         plan = relax_plan(h, w, steps)
-        buf = torch.empty((n_flags,), dtype=torch.int32, device=key.device)
-        part = torch.empty((plan["n_tiles"], 4), dtype=torch.int32, device=key.device)
-        prev = chg = skipped = None
-    else:
-        plan, buf, part = tiles.plan, tiles.buf, tiles.part
-        if tiles.n_flags != n_flags or tuple(plan["grid"]) != relax_plan(h, w, steps)["grid"]:
+        if tiles is not None and (tiles.n_flags != self.n_flags or tuple(tiles.plan["grid"]) != plan["grid"]):
             raise ValueError("relax tile state does not match this call")
-        prev, chg = tiles.next_call()
-        skipped = buf[n_flags:]
-    y0 = status = None
-    if fwd_scan:
-        if prev is not None:
+        self.tiles = tiles
+        self.part = torch.empty((plan["n_tiles"], 4), dtype=torch.int32, device=key.device) if tiles is None \
+            else tiles.part
+        self.scan = (None, None)
+        if fwd_scan:
+            # The look-back's words: a ticket, then one per tile row and column.
+            self.y0 = torch.empty_like(lab)
+            self.status = torch.empty((1 + plan["grid"][0] * w,), dtype=torch.int64, device=key.device)
+            self.scan = (self.y0.data_ptr(), self.status.data_ptr())
+        vec = w % 4 == 0 and all(t.data_ptr() % 16 == 0 for p in planes for t in p) and v.data_ptr() % 4 == 0
+        self.ends = [(k.data_ptr(), l.data_ptr()) for k, l in planes]
+        self.base, self.row = words.data_ptr(), 4 * words.shape[1]
+        self.fn, self.head, self.part_ptr = _ext.lib().rwt_relax, v.data_ptr(), self.part.data_ptr()
+        self.tail = (h, w, steps, d_bits, plan["rows"], plan["warps"], plan["tile_y"], plan["tile_x"], *rect,
+                     int(stats), int(vec), _ext.stream_ptr(key))
+        self.n_tiles, self.px, self.rect = plan["n_tiles"], h * w if tiles is None else 0, rect != (0, h, 0, w)
+
+    def __call__(self, c: int, i: int, g=None):
+        prev, chg = (None, None) if self.tiles is None else self.tiles.next_call()
+        y0_call = self.fwd_scan and c == 0
+        if y0_call and prev is not None:
             raise ValueError("the y0 epilogue needs a call that runs every tile: the fixed point's first")
-        # The look-back's words: a ticket, then one per tile row and column.
-        y0 = torch.empty_like(lab)
-        status = torch.empty((1 + plan["grid"][0] * w,), dtype=torch.int64, device=key.device)
-    vec = w % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in planes[1:]) and v.data_ptr() % 4 == 0
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = _ext.lib().rwt_relax(
-        v.data_ptr(), key.data_ptr(), lab.data_ptr(), key_out.data_ptr(), lab_out.data_ptr(),
-        buf.data_ptr(), ptr(prev), ptr(chg), part.data_ptr(), ptr(skipped), ptr(y0), ptr(status), h, w, steps, d_bits,
-        plan["rows"], plan["warps"], plan["tile_y"], plan["tile_x"], *rect, int(stats), int(vec),
-        _ext.stream_ptr(key),
-    )
-    _ext.check(err, "rwt_relax")
-    _ext.launches["relax"] += 1
-    _ext.launches["relax_tiles"] += plan["n_tiles"]
-    _ext.launches["relax_sweeps"] += steps
-    if tiles is None:
-        _ext.launches["relax_px_run"] += h * w
-    if rect != (0, h, 0, w):
-        _ext.launches["relax_ctr"] += 1
+        slot = self.base + self.row * i
+        err = self.fn(self.head, *self.ends[c % 2], *self.ends[1 - c % 2], slot, prev, chg, self.part_ptr,
+                      None if self.tiles is None else slot + 4 * self.n_flags,
+                      *(self.scan if y0_call else (None, None)),
+                      None if g is None else self.base + self.row * g + 4 * LAST, *self.tail)
+        _ext.check(err, "rwt_relax")
+        _ext.launches["relax_launched"] += 1
+        _ext.launches["relax_y0"] += y0_call
+
+    def settle(self, ran: int, stopped: int):
+        n = _ext.launches
+        n["relax"] += ran
+        n["relax_tiles"] += ran * self.n_tiles
+        n["relax_sweeps"] += ran * self.steps
+        n["relax_px_run"] += ran * self.px
+        n["relax_ctr"] += ran * self.rect
+        n["relax_stopped"] += stopped
+
+
+def relax_block_kernel(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, tiles=None, ctr=None,
+                       fwd_scan=False):
+    """Launch csrc/relax.cu: ``steps`` Jacobi sweeps of CUDA planes into
+    ``out`` (fresh planes when None; never the input planes).  ``tiles``
+    (the state of a loop of calls) lets the call skip the tiles that the
+    previous call left quiet, and counts them, and the pixels of the tiles
+    that ran, after the flags in ``tiles.buf`` (``_Tiles.count``); a call
+    without it runs every pixel, counted here in ``relax_px_run``.
+    ``ctr`` limits the flags to a centre rectangle.
+    ``fwd_scan=True`` runs the y0 epilogue (counted as ``relax_y0``) and
+    returns ``y0`` after the flags; it raises on a call that may skip tiles
+    (one with a previous call in ``tiles``)."""
+    stats = _scan_args(stats, ctr, fwd_scan)
+    d_bits, _, _ = _key_consts(d_bits)
+    n_flags = 6 if stats else 3
+    out = (torch.empty_like(key), torch.empty_like(lab)) if out is None else tuple(out)
+    words = tiles.buf[None] if tiles is not None else torch.empty((1, n_flags), dtype=torch.int32, device=key.device)
+    launch = _RelaxLauncher(v, ((key, lab), out), steps, d_bits, stats=stats, ctr=ctr, words=words, tiles=tiles,
+                            fwd_scan=fwd_scan)
+    launch(0, 0)
+    launch.settle(1, 0)
     if fwd_scan:
-        _ext.launches["relax_y0"] += 1
-        return key_out, lab_out, buf[:n_flags], y0
-    return key_out, lab_out, buf[:n_flags]
+        return *out, words[0, :n_flags], launch.y0
+    return *out, words[0, :n_flags]
 
 
 def relax_block(v, key, lab, steps: int, d_bits=None, *, out=None, stats=False, ctr=None, tiles=None,
@@ -335,11 +433,26 @@ def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, s
     certifying call's saturation flag.  ``stats=True`` appends the
     certifying call's ``(n_unclaimed_interior, any_claimed_border,
     min_claimed_interior_label)``: its output planes are the fixed point, so
-    these are the fixed point's statistics.  The host reads one small flag
-    tensor per call.  ``on_call(src, dst, flags, skipped)``, when given,
-    sees every call: its input and output planes, its flags and the number
-    of tiles it skipped.  ``ctr`` limits every call's flags to a centre
-    rectangle.
+    these are the fixed point's statistics.  ``on_call(src, dst, flags,
+    skipped)``, when given, sees every call: its input and output planes,
+    its flags and the number of tiles it skipped.  ``ctr`` limits every
+    call's flags to a centre rectangle.
+
+    The calls are queued in blocks of ``k = _RELAX_BLOCK``, each writing its
+    flags into a slot of one small array and taking the LAST word of the
+    call before it as its ``go`` (the first call none), so once a call
+    certifies, the calls after it stop on the device and write nothing.
+    Block ``b + 1`` is queued before block ``b``'s slots are read (copied
+    into pinned host memory and read after an event: one host read a
+    block, counted as ``relax_reads``), so the card always has a block
+    queued while the host reads.  The loop ends at the first block that
+    holds a quiet call: the certifying call, whose parity holds the output
+    planes and whose slot the flags; ``k`` to ``2k - 1`` calls stop on the
+    card.  Planes, flags and the counters of the calls that ran
+    (``_Tiles.count``, in call order) are those of a loop that reads every
+    call.  With ``on_call`` the block is one call, read before the next is
+    queued, so that the hook sees each call's planes before the next call
+    overwrites them.
 
     ``fwd_scan=True`` (statistics implied, no ``ctr``; JAX's
     ``relax_fixed_point_fused``) runs the first call, which skips no tile,
@@ -360,32 +473,53 @@ def relax_fixed_point(v, key, lab, *, steps: int = DEFAULT_STEPS, d_bits=None, s
     the partials it wrote when it last ran, on the same planes.
     """
     stats = _scan_args(stats, ctr, fwd_scan)
-    src = (key, lab)
-    dst = (torch.empty_like(key), torch.empty_like(lab))
-    tiles = None
-    if key.is_cuda:
-        tiles = _Tiles(relax_plan(*key.shape, steps), 6 if stats else 3, key.device)
-    y0 = None
-    while True:
-        first = fwd_scan and y0 is None
-        k2, l2, flags, *y = relax_block(v, *src, steps, d_bits, out=dst, stats=stats, ctr=ctr, tiles=tiles,
-                                        fwd_scan=first)
-        if tiles is None:
-            f, skipped = _ext.host_read(flags), 0
-        else:
-            f, skipped = tiles.count(_ext.host_read(tiles.buf))
-        if first:
-            y0, y0_valid = y[0], not f[LAST]
-        if on_call is not None:
-            on_call(src, (k2, l2), flags, skipped)
-        src, dst = (k2, l2), src
-        if not f[LAST]:
-            out = (k2, l2, bool(f[SAT]))
-            if stats:
-                out += ((f[N_UNCL], bool(f[ANY_BORDER]), f[GMIN]),)
-            if fwd_scan:
-                out += (y0, y0_valid)
-            return out
+    d_bits, _, _ = _key_consts(d_bits)
+    n_flags, cuda = (6 if stats else 3), key.is_cuda
+    k = _RELAX_BLOCK if on_call is None else 1
+    planes = ((key, lab), (torch.empty_like(key), torch.empty_like(lab)))
+    # Rows 0..k-1 and k..2k-1: the flag slots of even and odd blocks.
+    words = torch.empty((2 * k, n_flags + 3), dtype=torch.int32, device=key.device)
+    host = torch.empty((2, k, n_flags + 3), dtype=torch.int32, pin_memory=cuda)
+    if cuda:
+        tiles = _Tiles(relax_plan(*key.shape, steps), n_flags, key.device)
+        launch = _RelaxLauncher(v, planes, steps, d_bits, stats=stats, ctr=ctr, words=words, tiles=tiles,
+                                fwd_scan=fwd_scan)
+        done = (torch.cuda.Event(), torch.cuda.Event())
+    else:
+        launch = _PlainRelaxLauncher(v, planes, steps, d_bits, stats=stats, ctr=ctr, words=words, fwd_scan=fwd_scan)
+
+    def queue(b: int):
+        first = (b % 2) * k
+        for j in range(k):
+            c, i = b * k + j, first + j
+            launch(c, i, None if c == 0 else (i - 1) % (2 * k))
+        h = host[b % 2]
+        h.copy_(words[first : first + k], non_blocking=cuda)
+        if not cuda:
+            return h, None
+        done[b % 2].record(torch.cuda.current_stream(key.device))
+        return h, done[b % 2]
+
+    block = queue(0)
+    for b in itertools.count():
+        ahead = queue(b + 1) if on_call is None else None
+        rows = _ext.host_read(block[0], after=block[1])
+        _ext.launches["relax_reads"] += 1
+        for j, r in enumerate(rows):
+            c = b * k + j
+            f, skipped = launch.count(r)
+            if on_call is not None:
+                on_call(planes[c % 2], planes[1 - c % 2], words[(b % 2) * k + j, :n_flags], skipped)
+            if not f[LAST]:
+                launch.settle(j + 1, k - j - 1 + (0 if ahead is None else k))
+                out = (*planes[1 - c % 2], bool(f[SAT]))
+                if stats:
+                    out += ((f[N_UNCL], bool(f[ANY_BORDER]), f[GMIN]),)
+                if fwd_scan:
+                    out += (launch.y0, c == 0)
+                return out
+        launch.settle(k, 0)
+        block = queue(b + 1) if ahead is None else ahead
 
 
 def relax_packed_planes(

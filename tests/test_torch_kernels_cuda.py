@@ -595,8 +595,9 @@ def test_relax_tile_and_host_read_counters(cuda):
     """``relax_tiles`` adds each launch's plan tiles and
     ``relax_tiles_skipped`` the skips that ``on_call`` sees: 0 on the first
     call, at most ``n_tiles`` after; a launch without tile state skips
-    nothing.  One host read a relax call, and in the merging e2e one more a
-    block of coarse tail rounds."""
+    nothing.  One host read a relax call with ``on_call``; in the merging
+    e2e one a block of relax calls and one a block of coarse tail
+    rounds."""
     img = torch.from_numpy(_field((1024, 1024), 254, seed=7)).to(cuda)
     v, key, lab, _ = pack.pack_kernel(img)
     plan = relax.relax_plan(1024, 1024, relax.DEFAULT_STEPS)
@@ -612,7 +613,8 @@ def test_relax_tile_and_host_read_counters(cuda):
     _ext.reset_launches()
     watershed_e2e(img, merging=True, device=cuda)
     blocks = -(-n["coarse_round"] // sm._TAIL_BLOCK)
-    assert n["merge_tail"] == 1 and n["host_reads"] == n["relax"] + blocks > n["relax"]
+    assert n["relax_reads"] == -(-n["relax"] // relax._RELAX_BLOCK)
+    assert n["merge_tail"] == 1 and n["host_reads"] == n["relax_reads"] + blocks > n["relax_reads"]
 
 
 def test_relax_px_run_when_no_tile_is_skipped(cuda):
@@ -724,6 +726,93 @@ def test_relax_calls_sparse_equals_a_recount_from_the_tile_flags(cuda):
     _ext.reset_launches()
     watershed_e2e(u8, device=cuda)
     assert (n["relax"], n["relax_calls_sparse"], n["pre_process_px"]) == (tiles.calls, sparse, 0)
+
+
+@pytest.mark.parametrize("stats", [False, True])
+def test_relax_call_whose_go_is_zero_stops_on_the_card(cuda, stats):
+    """Through the fixed point's launcher: a call whose ``go`` holds 0
+    leaves both planes, the tile flags and the partials as they were, and
+    its flags read 0 (the words after them untouched); one whose ``go`` is
+    nonzero is the twin's call.  Each launch is counted as it is queued,
+    the calls that ran and stopped only when settled."""
+    img = torch.from_numpy(_field((300, 420), 254, seed=3)).to(cuda)
+    v, key, lab, _ = pack.pack_kernel(img)
+    n_flags, steps, d_bits = (6 if stats else 3), relax.DEFAULT_STEPS, relax._key_consts(None)[0]
+    tiles = relax._Tiles(relax.relax_plan(300, 420, steps), n_flags, cuda)
+    planes = ((key.clone(), lab.clone()), (torch.full_like(key, -7), torch.full_like(lab, -7)))
+    words = torch.full((3, n_flags + 3), 5, dtype=torch.int32, device=cuda)  # row 2: the go word
+    _ext.reset_launches()
+    launch = relax._RelaxLauncher(v, planes, steps, d_bits, stats=stats, ctr=None, words=words, tiles=tiles)
+    launch(0, 0)
+    _assert_same((*planes[1], words[0, :n_flags]), relax.relax_block_plain(v, *planes[0], steps, stats=stats))
+    before = [t.clone() for t in (*planes[0], *planes[1], tiles.chg, tiles.part)]
+    words[2, relax.LAST] = 0
+    launch(1, 1, 2)
+    _assert_same((*planes[0], *planes[1], tiles.chg, tiles.part), before)
+    assert words[1].tolist() == [0] * n_flags + [5] * 3
+    n = _ext.launches
+    assert n["relax_launched"] == 2 and n["relax"] == n["relax_stopped"] == 0
+    launch.settle(1, 1)
+    assert n["relax"] == n["relax_stopped"] == 1 and n["relax_sweeps"] == steps
+    words[2, relax.LAST] = 1
+    bare = relax._RelaxLauncher(v, planes, steps, d_bits, stats=stats, ctr=None, words=words)
+    bare(1, 1, 2)
+    _assert_same((*planes[0], words[1, :n_flags]), relax.relax_block_plain(v, *planes[1], steps, stats=stats))
+
+
+def _beam_u8(n, seed):
+    """``portbench/fields/beam.py``'s map at ``n`` x ``n``, drawn on the
+    card and quantised there."""
+    import importlib.util
+    import json
+    from pathlib import Path
+
+    from rustronomy_watershed_tpu_torch.ops.preprocess import pre_process_jnp
+
+    bench = Path(__file__).resolve().parents[1] / "portbench"
+    spec = importlib.util.spec_from_file_location("portbench_fields_beam_cuda", bench / "fields" / "beam.py")
+    beam = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(beam)
+    field = json.loads((bench / "traffic" / "segment_beam.json").read_text())["field"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return pre_process_jnp(beam.make((n, n), field, gen), 254, device="cuda")
+
+
+COUNTED = ("relax", "relax_sweeps", "relax_tiles", "relax_tiles_skipped", "relax_px_run", "relax_calls_sparse")
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("kind", ["beam", "uniform"])
+def test_blocked_relax_fixed_point_equals_the_per_call_loop(cuda, kind, stats):
+    """A 1024^2 beam map (the long fixed point of plateaus) and a uniform
+    tile: the blocked fixed point gives the planes, flags and statistics of
+    the loop that reads every call (``on_call`` given), bit for bit, with
+    the same counts of the calls that ran; it reads once a block and stops
+    ``k`` to ``2k - 1`` calls on the card.  With ``fwd_scan`` the same y0."""
+    u8 = _beam_u8(1024, 5) if kind == "beam" else torch.from_numpy(_field((1024, 1024), 254, seed=9)).to(cuda)
+    v, key, lab, _ = pack.pack_kernel(u8)
+    k = relax._RELAX_BLOCK
+    for fwd_scan in (False, True) if stats else (False,):
+        _ext.reset_launches()
+        want = relax.relax_fixed_point(v, key.clone(), lab.clone(), stats=stats, fwd_scan=fwd_scan,
+                                       on_call=lambda *a: None)
+        torch.cuda.synchronize()
+        per_call = dict(_ext.launches)
+        _ext.reset_launches()
+        got = relax.relax_fixed_point(v, key.clone(), lab.clone(), stats=stats, fwd_scan=fwd_scan)
+        torch.cuda.synchronize()
+        n = _ext.launches
+        _assert_same(got[:2], want[:2])
+        assert got[2:4] == want[2:4]
+        if fwd_scan:
+            _assert_same([got[4]], [want[4]])
+            assert got[5] == want[5]
+        assert {c: n[c] for c in COUNTED} == {c: per_call[c] for c in COUNTED}
+        assert per_call["relax_reads"] == per_call["relax"] and per_call["relax_stopped"] == 0
+        assert n["relax_reads"] == n["host_reads"] == -(-n["relax"] // k)
+        assert k <= n["relax_stopped"] <= 2 * k - 1 and n["relax_launched"] == n["relax"] + n["relax_stopped"]
+        assert n["relax"] >= (40 if kind == "beam" else 2)
 
 
 def _rects(h, w):

@@ -2,7 +2,8 @@
 under ``trace()`` the public calls and the merging driver leave their
 ``rwt.*`` ranges in the Chrome trace, nested by layer; with no profiler a
 span is one shared no-op that never builds a ``record_function``; and
-``_ext.launches["host_reads"]`` counts each flag read of the merging path."""
+``_ext.launches["host_reads"]`` counts each flag read of the merging path
+(one a block of relax calls, one a block of coarse rounds)."""
 
 import json
 
@@ -116,10 +117,21 @@ def _tail_reads(n) -> int:
     return -(-n["coarse_round_plain"] // scan_merge._TAIL_BLOCK)
 
 
+def _relax_reads(n) -> int:
+    """The relax fixed point's reads: one a block of ``_RELAX_BLOCK`` calls,
+    up to the block that holds the certifying call (``relax_reads``)."""
+    from rustronomy_watershed_tpu_torch.ops import relax
+
+    reads = -(-n["relax_plain"] // relax._RELAX_BLOCK)
+    assert n["relax_reads"] == reads
+    return reads
+
+
 @pytest.mark.parametrize("tail_legacy", [False, True])
 def test_host_reads_count_the_merging_flag_reads(monkeypatch, tail_legacy):
-    """One read a relax call and, on the tail, one a block of coarse rounds,
-    or one a legacy pass 2 with ``RWT_COARSE_MULTI=0``, and nothing else."""
+    """One read a block of relax calls and, on the tail, one a block of
+    coarse rounds, or one a legacy pass 2 with ``RWT_COARSE_MULTI=0``, and
+    nothing else."""
     from rustronomy_watershed_tpu_torch.ops import scan_merge
 
     monkeypatch.setattr(scan_merge, "_COARSE_MULTI", not tail_legacy)
@@ -128,21 +140,21 @@ def test_host_reads_count_the_merging_flag_reads(monkeypatch, tail_legacy):
     n = _ext.launches
     rounds = n["cbwd_vh_plain"] if tail_legacy else n["coarse_round_plain"]
     assert n["merge_tail"] == 1 and n["relax_plain"] > 0 and rounds > 0
-    assert n["host_reads"] == n["relax_plain"] + (rounds if tail_legacy else _tail_reads(n))
+    assert n["host_reads"] == _relax_reads(n) + (rounds if tail_legacy else _tail_reads(n))
     assert n["relax_tiles"] == n["relax_tiles_skipped"] == 0  # the twin runs no tile
 
 
 def test_host_reads_of_the_api_calls():
-    """``transform_to_list``: the seed list, a read a relax call and the
-    compact planes; ``transform``: a read a relax call and a block of tail
-    rounds, and the labels."""
+    """``transform_to_list``: the seed list, a read a block of relax calls
+    and the compact planes; ``transform``: a read a block of relax calls and
+    a block of tail rounds, and the labels."""
     img = _nan_dots()
     ws = _ws()
     _ext.reset_launches()
     seeds = ws.find_local_minima(img)
     ws.transform_to_list(img, seeds)
-    assert _ext.launches["host_reads"] == 1 + _ext.launches["relax_plain"] + 1
+    assert _ext.launches["host_reads"] == 1 + _relax_reads(_ext.launches) + 1
     _ext.reset_launches()
     ws.transform(img, seeds)
     n = _ext.launches
-    assert n["merge_tail"] == 1 and n["host_reads"] == n["relax_plain"] + _tail_reads(n) + 1
+    assert n["merge_tail"] == 1 and n["host_reads"] == _relax_reads(n) + _tail_reads(n) + 1

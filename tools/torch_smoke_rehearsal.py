@@ -141,6 +141,29 @@ def _fake_kernels():
     relax.relax_block_kernel = relax_kernel
     relax.relax_block = lambda *a, **k: relax.relax_block_kernel(*a, **k)
 
+    class RelaxLauncher(relax._PlainRelaxLauncher):
+        """The fixed point's twin launcher, its calls counted as the
+        kernel's: each at its launch (with the y0 epilogue), those that ran
+        and those that stopped when settled, with the plane's pixels and
+        the centre rectangle (no tiles, as ``relax_kernel``)."""
+
+        n_tiles = 0  # the twin plans no tiles
+        settle = relax._RelaxLauncher.settle
+
+        def __init__(self, v, planes, steps, d_bits, **kw):
+            super().__init__(v, planes, steps, d_bits, **kw)
+            h, w = v.shape
+            self.px, self.rect = h * w, relax._rect(self.ctr, h, w, self.stats) != (0, h, 0, w)
+
+        def __call__(self, c, i, g=None):
+            stopped = g is not None and not self.words[g, relax.LAST]
+            super().__call__(c, i, g)
+            _ext.launches["relax_stopped" if stopped else "relax_plain"] -= 1
+            _ext.launches["relax_launched"] += 1
+            _ext.launches["relax_y0"] += self.fwd_scan and c == 0
+
+    relax._PlainRelaxLauncher = RelaxLauncher
+
     def pack_fused(img, device, **kw):
         return pack.pack_kernel(torch.as_tensor(img).to(torch.uint8).contiguous(), **kw)
 
