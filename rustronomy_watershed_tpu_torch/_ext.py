@@ -56,6 +56,10 @@ those the merging tail queued that stopped on the device, because a round
 before them changed nothing (ops/scan_merge.py ``_coarse_rounds``, which
 counts both once it has read a block's change counts): the two add up to
 ``coarse_round_launched``.
+``fine_tail`` counts the calls of the fine scan tail (ops/scan_merge.py
+``component_min_fine``) and ``fine_round`` their rounds, each ended by one
+flag read (also in ``host_reads``); the legacy coarse rounds count in
+neither.
 ``host_reads`` counts the program's explicit blocking reads of a result on
 the transforms' paths, each made through ``host_read``: a block of relax
 calls' flags, a block of coarse rounds' change counts, a legacy or fine tail
@@ -131,6 +135,8 @@ launches = {
     "relax_reads": 0,
     "coarse_round_launched": 0,
     "coarse_round_skipped": 0,
+    "fine_tail": 0,
+    "fine_round": 0,
     "host_reads": 0,
     "curve_block_reused": 0,
     "curve_block_new": 0,

@@ -817,12 +817,14 @@ def _two_pass_rounds(x, fwd, bwd, y0=None):
         y, _ = fwd(y, out=y)
 
 
+@spanned("rwt.tail.fine")
 def component_min_fine(labels, *, y0=None, y0_valid=None):
     """Component-min labels on the fine scan tail; returns ``(labels,
     rounds)``.  A violation-free pass 2 certifies the fixed point: labels
     only min-propagate inside components, so a state with no differing
     claimed pair across an unblocked edge is the component minimum
-    (scan_merge.py:409-421).
+    (scan_merge.py:409-421).  Counted once a call in ``fine_tail`` and by
+    its rounds in ``fine_round`` (each round one flag read).
 
     ``y0`` / ``y0_valid``: pass 1's plane from the relax kernel's y0
     epilogue (``ops.relax.relax_packed_planes(fwd_scan=True)``), the
@@ -837,9 +839,12 @@ def component_min_fine(labels, *, y0=None, y0_valid=None):
             raise ValueError("y0 must be a contiguous int32 plane of the labels' shape and device")
     else:
         y0 = None
-    return _two_pass_rounds(
+    out, rounds = _two_pass_rounds(
         lab, fwd_v, lambda y, k, out, scratch: bwd_vh(y, out=out, scratch=scratch), y0
     )
+    _ext.launches["fine_tail"] += 1
+    _ext.launches["fine_round"] += rounds
+    return out, rounds
 
 
 def _legacy_window(k: int):

@@ -3,7 +3,8 @@ under ``trace()`` the public calls and the merging driver leave their
 ``rwt.*`` ranges in the Chrome trace, nested by layer; with no profiler a
 span is one shared no-op that never builds a ``record_function``; and
 ``_ext.launches["host_reads"]`` counts each flag read of the merging path
-(one a block of relax calls, one a block of coarse rounds)."""
+(one a block of relax calls, one a block of coarse rounds, one a fine
+round)."""
 
 import json
 
@@ -12,7 +13,8 @@ import pytest
 import torch
 
 from rustronomy_watershed_tpu_torch import _ext
-from rustronomy_watershed_tpu_torch.ops.pipeline import watershed_e2e
+from rustronomy_watershed_tpu_torch.ops.level_driver import run_levels_impl
+from rustronomy_watershed_tpu_torch.ops.pipeline import max_seed_count, watershed_e2e
 from rustronomy_watershed_tpu_torch.prelude import TransformBuilder
 from rustronomy_watershed_tpu_torch.utils import tracing
 from rustronomy_watershed_tpu_torch.utils.tracing import trace, trace_artifacts
@@ -90,6 +92,25 @@ def test_merging_e2e_spans(tmp_path):
                             "rwt.tail": "rwt.e2e"}
 
 
+def _merge(img, n_labels):
+    """Merging with labels bounded by ``n_labels``: 2**24 or more fails the
+    coarse gate, so the fine scan tail runs."""
+    return run_levels_impl(img, None, max_water_level=254, merging=True, n_labels=n_labels, backend="packed",
+                           device="cpu")
+
+
+@pytest.mark.parametrize("route", ["fine", "coarse"])
+def test_the_fine_tail_span_nests_in_the_tail(tmp_path, route):
+    img = _nan_dots()
+    with trace(tmp_path):
+        _merge(img, 1 << 24 if route == "fine" else max_seed_count(img.shape))
+    spans = _spans(tmp_path)
+    tail = ["rwt.tail", "rwt.tail.fine"] if route == "fine" else ["rwt.tail"]
+    assert sorted(x[0] for x in spans) == ["rwt.driver.relax", "rwt.pack"] + tail
+    assert _tree(spans) == {"rwt.pack": None, "rwt.driver.relax": None, "rwt.tail": None,
+                            **({"rwt.tail.fine": "rwt.tail"} if route == "fine" else {})}
+
+
 def test_span_is_the_shared_no_op_without_a_profiler(monkeypatch):
     assert not torch.autograd._profiler_enabled()
     assert tracing.span("rwt.e2e") is tracing._NO_SPAN
@@ -158,3 +179,13 @@ def test_host_reads_of_the_api_calls():
     ws.transform(img, seeds)
     n = _ext.launches
     assert n["merge_tail"] == 1 and n["host_reads"] == _relax_reads(n) + _tail_reads(n) + 1
+
+
+def test_host_reads_of_the_fine_tail():
+    """The fine route reads once a block of relax calls and once a fine
+    round, each round's flag: its counters add no read."""
+    _ext.reset_launches()
+    _merge(_nan_dots(), 1 << 24)
+    n = _ext.launches
+    assert n["merge_tail"] == 1 and n["fine_tail"] == 1 and n["fine_round"] == n["bwd_vh_plain"] >= 1
+    assert n["host_reads"] == _relax_reads(n) + n["fine_round"]
